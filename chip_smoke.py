@@ -1,0 +1,277 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (topopt_in_petsc_tpu_torch) on one
+NVIDIA GPU.  Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing its lines before the next starts:
+  1. environment: torch and CUDA versions, device name, nvidia-smi's name
+     and power limit;
+  2. build: the hand-written kernels K1 and K2 with nvcc, and its time;
+  3. kernel parity: each kernel against its plain PyTorch version on the
+     card at 9x7x5, 65x33x33 and 13x11x7 nodes (rtol 2e-5, atol 1e-5 of
+     max|ref|, the JAX package's bar for its Pallas kernels);
+  4. kernel times at 257^3 nodes against the plain versions (CUDA events,
+     median of 15 runs each, in turns);
+  5. the default 65x33x33 run through the CLI entry for 10 iterations,
+     held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
+     CPU), with the launch counts of both kernels over that run;
+  6. the 257^3 run (50.9M dof) for 2 iterations: iteration-1 compliance
+     against the JAX package's 257^3 golden history, both solves
+     converged;
+then one JSON line of per-kernel results and, last, the JSON status line.
+Any failure raises: the exit code is nonzero and no status line is
+printed.  Nothing falls back to the CPU or to a plain version.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7))
+RTOL, ATOL_REL = 2e-5, 1e-5
+# history bars against the JAX package on CPU: fx relative, gx and ch
+# absolute (gx[0] passes through 0 at iteration 1)
+FX_RTOL, GX_ATOL, CH_ATOL = 1e-3, 1e-4, 1e-3
+GOLDEN_257_FX1 = 1725.1459  # docs/golden_history_257x257x257.npz, it. 1
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def phase_environment():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[1 env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, "
+        f"count {torch.cuda.device_count()}")
+    log(smi)  # name, power limit
+
+
+def phase_build():
+    from topopt_in_petsc_tpu_torch.ops.cuda_build import LIBRARY
+
+    t0 = time.perf_counter()
+    LIBRARY.get()
+    dt = time.perf_counter() - t0
+    for line in LIBRARY.build_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[2 build] ptxas: {line.strip()}")
+    log(f"[2 build] {os.path.relpath(LIBRARY.path, REPO)} in {dt:.2f} s "
+        f"(nvcc {LIBRARY.build_seconds} s)")
+
+
+def _case(nn, seed, dev):
+    from topopt_in_petsc_tpu_torch.grid import Grid
+    from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
+
+    grid = Grid(nn=nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
+    KE = hex8_stiffness(*grid.h, 0.3)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.normal(size=(3, *nn)), dtype=torch.float32,
+                        device=dev)
+    E = torch.as_tensor(rng.uniform(1e-9, 1.0, size=grid.ne),
+                        dtype=torch.float32, device=dev)
+    return KE, u, E
+
+
+def _plain_k1(vb, eb, KE, mask_x0):
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import mask0
+    from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
+
+    KEt = torch.as_tensor(KE, dtype=torch.float32, device=vb.device)
+    out = apply_hex_operator(vb.permute(1, 2, 3, 0), eb, KEt)
+    out = out.permute(3, 0, 1, 2).contiguous()
+    return mask0(out) if mask_x0 else out
+
+
+def _plain_k2(u, KE):
+    from topopt_in_petsc_tpu_torch.ops.hex_operator import (
+        element_quadratic_form,
+    )
+
+    return element_quadratic_form(
+        u, torch.as_tensor(KE, dtype=torch.float32, device=u.device)
+    )
+
+
+def _compare(name, got, ref):
+    err = float(torch.max(torch.abs(got - ref)))
+    scale = float(torch.max(torch.abs(ref)))
+    ok = bool(torch.all(
+        torch.abs(got - ref) <= ATOL_REL * scale + RTOL * torch.abs(ref)
+    ))
+    log(f"[3 parity] {name}: max|err| {err:.3e}, max|ref| {scale:.3e}, "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def phase_parity(dev):
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
+    from topopt_in_petsc_tpu_torch.ops.quadform import quadform
+
+    errs = {"K1": 0.0, "K2": 0.0}
+    for i, nn in enumerate(PARITY_SHAPES):
+        KE, vb, E = _case(nn, i, dev)
+        for mask_x0 in (False, True):
+            got = hex_operator(vb, E, KE, mask_x0)
+            ref = _plain_k1(vb, E, KE, mask_x0)
+            errs["K1"] = max(errs["K1"], _compare(
+                f"K1 {nn} mask_x0={mask_x0}", got, ref))
+        u = vb.permute(1, 2, 3, 0).contiguous()
+        errs["K2"] = max(errs["K2"], _compare(
+            f"K2 {nn}", quadform(u, KE), _plain_k2(u, KE)))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _median_ms(fns, reps=15):
+    """Median CUDA-event time of each function, run in turns."""
+    times = [[] for _ in fns]
+    for f in fns:  # warm-up
+        f()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for i, f in enumerate(fns):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            f()
+            b.record()
+            torch.cuda.synchronize()
+            times[i].append(a.elapsed_time(b))
+    return [statistics.median(t) for t in times]
+
+
+def phase_kernel_times(dev):
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
+    from topopt_in_petsc_tpu_torch.ops.quadform import quadform
+
+    nn = (257, 257, 257)
+    KE, vb, E = _case(nn, 7, dev)
+    k1, p1 = _median_ms([
+        lambda: hex_operator(vb, E, KE, True),
+        lambda: _plain_k1(vb, E, KE, True),
+    ])
+    u = vb.permute(1, 2, 3, 0).contiguous()
+    k2, p2 = _median_ms([lambda: quadform(u, KE), lambda: _plain_k2(u, KE)])
+    log(f"[4 times] 257^3 K1 hex_operator {k1:.4f} ms, plain {p1:.4f} ms")
+    log(f"[4 times] 257^3 K2 quadform {k2:.4f} ms, plain {p2:.4f} ms")
+    del vb, E, u
+    torch.cuda.empty_cache()
+    return {"K1": (k1, p1), "K2": (k2, p2)}
+
+
+def _run_cli(args, workdir):
+    from topopt_in_petsc_tpu_torch.__main__ import main
+
+    rc = main([*args, "-workdir", workdir])
+    if rc != 0:
+        raise RuntimeError(f"CLI run {args} returned {rc}")
+    with np.load(os.path.join(workdir, "history.npz")) as h:
+        return {k: h[k] for k in h.files}
+
+
+def phase_default_run():
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import HEX_OPERATOR
+    from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
+
+    with np.load(os.path.join(REPO, "docs",
+                              "jax_cpu_history_65x33x33.npz")) as r:
+        ref = {k: r[k] for k in r.files}
+    with tempfile.TemporaryDirectory() as tmp:
+        HEX_OPERATOR.launches = QUADFORM.launches = 0
+        h = _run_cli(["-maxItr", "10"], tmp)
+        torch.cuda.synchronize()
+        launches = {"K1": HEX_OPERATOR.launches, "K2": QUADFORM.launches}
+        files = set(os.listdir(tmp))
+    log(f"[5 default] launches over the run: {launches}")
+    for name in ("output_00001.vtu", "output_00011.vtu", "Restart00.npz",
+                 "Restart01.npz", "RestartSol00.npz"):
+        if name not in files:
+            raise AssertionError(f"{name} was not written")
+    if len(h["fx"]) != 10 or not all(
+            np.isfinite(h[k]).all() for k in ("fx", "gx", "ch", "mnd")):
+        raise AssertionError(f"bad history: {h}")
+    dfx = np.max(np.abs(h["fx"] - ref["fx"]) / np.abs(ref["fx"]))
+    dgx = np.max(np.abs(h["gx"] - ref["gx"]))
+    dch = np.max(np.abs(h["ch"] - ref["ch"]))
+    log(f"[5 default] vs JAX CPU history: fx max rel {dfx:.3e} "
+        f"(bar {FX_RTOL}), gx max abs {dgx:.3e} (bar {GX_ATOL}), "
+        f"ch max abs {dch:.3e} (bar {CH_ATOL})")
+    log(f"[5 default] s/iteration {h['time'].tolist()}, "
+        f"solver iterations {h['iters'].tolist()}")
+    if not (dfx <= FX_RTOL and dgx <= GX_ATOL and dch <= CH_ATOL):
+        raise AssertionError("default run disagrees with the JAX history")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def phase_real_size():
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        h = _run_cli(["-nx", "257", "-ny", "257", "-nz", "257",
+                      "-nlvls", "5", "-maxItr", "2",
+                      "-output_cadence_vtu", "0"], tmp)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    d = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
+    log(f"[6 257^3] fx {h['fx'].tolist()}, it.1 rel diff to golden "
+        f"{d:.3e}, s/iteration {h['time'].tolist()}, solver iterations "
+        f"{h['iters'].tolist()}, stalled {h['stalled'].tolist()}, "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    if len(h["fx"]) != 2 or not np.isfinite(h["fx"]).all():
+        raise AssertionError(f"bad history: {h}")
+    if d > 1e-3 or h["stalled"].any():
+        raise AssertionError("257^3 run off the golden or stalled")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import topopt_in_petsc_tpu_torch  # noqa: F401  (sets TF32 off)
+
+    dev = torch.device("cuda", 0)
+    phase_environment()
+    phase_build()
+    errs = phase_parity(dev)
+    times = phase_kernel_times(dev)
+    launches = phase_default_run()
+    phase_real_size()
+    src = "topopt_in_petsc_tpu_torch/csrc/"
+    kernels = [
+        {"name": "hex_operator (K1)", "route": "cuda",
+         "source": src + "hex_operator.cu",
+         "replaces": "topopt_in_petsc_tpu/ops/blocked_hex.py:65",
+         "launches": launches["K1"], "max_abs_err": errs["K1"],
+         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
+        {"name": "quadform (K2)", "route": "cuda",
+         "source": src + "quadform.cu",
+         "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:274",
+         "launches": launches["K2"], "max_abs_err": errs["K2"],
+         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Marked `cuda`; skipped where no CUDA device is visible.  Run
+on a GPU machine with
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py
+(`--noconftest`: tests/conftest.py sets up jax, which a GPU machine
+running only the port need not have).
+
+Tolerance: rtol 2e-5, atol 1e-5 of max|ref| (the JAX package's bar for
+its Pallas kernels, tests/test_blocked.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from topopt_in_petsc_tpu_torch.grid import Grid
+from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
+from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
+    HEX_OPERATOR,
+    hex_operator,
+    mask0,
+)
+from topopt_in_petsc_tpu_torch.ops.hex_operator import (
+    apply_hex_operator,
+    element_quadratic_form,
+)
+from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM, quadform
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(9, 7, 5), (13, 11, 7), (9, 5, 5), (17, 17, 17), (33, 17, 17)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _case(nn, dev):
+    grid = Grid(nn=nn, lo=(0, 0, 0), hi=(2, 1, 1))
+    KE = hex8_stiffness(*grid.h, 0.3)
+    rng = np.random.default_rng(sum(nn))
+    u = torch.as_tensor(rng.normal(size=(3, *nn)), dtype=torch.float32,
+                        device=dev)
+    E = torch.as_tensor(rng.uniform(1e-9, 1.0, size=grid.ne),
+                        dtype=torch.float32, device=dev)
+    return KE, u, E
+
+
+def _close(got, ref):
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("mask_x0", [False, True])
+@pytest.mark.parametrize("nn", SHAPES)
+def test_k1_matches_plain(dev, nn, mask_x0):
+    KE, u, E = _case(nn, dev)
+    before = HEX_OPERATOR.launches
+    got = hex_operator(u, E, KE, mask_x0)
+    assert HEX_OPERATOR.launches == before + 1
+    KEt = torch.as_tensor(KE, dtype=torch.float32, device=dev)
+    ref = apply_hex_operator(u.permute(1, 2, 3, 0), E, KEt)
+    ref = ref.permute(3, 0, 1, 2).contiguous()
+    _close(got, mask0(ref) if mask_x0 else ref)
+
+
+@pytest.mark.parametrize("nn", SHAPES)
+def test_k2_matches_plain(dev, nn):
+    KE, u, _ = _case(nn, dev)
+    un = u.permute(1, 2, 3, 0).contiguous()
+    before = QUADFORM.launches
+    got = quadform(un, KE)
+    assert QUADFORM.launches == before + 1
+    KEt = torch.as_tensor(KE, dtype=torch.float32, device=dev)
+    _close(got, element_quadratic_form(un, KEt))
+
+
+def test_wrappers_refuse_bad_tensors(dev):
+    KE, u, E = _case((9, 7, 5), dev)
+    with pytest.raises(ValueError):
+        hex_operator(u.double(), E, KE, True)
+    with pytest.raises(ValueError):
+        hex_operator(u, E[:-1], KE, True)
+    with pytest.raises(ValueError):
+        quadform(u.permute(1, 2, 3, 0), KE)  # not contiguous

@@ -1,0 +1,147 @@
+"""Linear elasticity physics: cantilever BC/load, state solve, compliance.
+
+Counterpart of the reference LinearElasticity class (LinearElasticity.cc)
+on the resident path of the JAX package's `models/elasticity.py`: the
+MG-PCG state solve runs in kernel K1's layout (solvers/blocked_mg.py), and
+the compliance and its sensitivity come from kernel K2 (ops/quadform.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from topopt_in_petsc_tpu_torch.grid import Grid
+from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
+from topopt_in_petsc_tpu_torch.ops.quadform import quadform
+from topopt_in_petsc_tpu_torch.solvers.blocked_mg import BlockedElasticityMG
+from topopt_in_petsc_tpu_torch.solvers.cg import CGResult, accurate_sum
+
+
+def build_cantilever_bc(grid: Grid, dtype=np.float64):
+    """Dirichlet mask N and load RHS for the reference cantilever problem
+    (LinearElasticity.cc:143-171), as nodal (nx, ny, nz, 3) numpy arrays:
+
+      - wall at x = xcmin fully clamped (all 3 dofs zero),
+      - line load F_z = -0.001 along the edge (x = xcmax, z = zcmin),
+        halved at the two corners (y = ycmin and y = ycmax).
+
+    The solver builds the same sets from index predicates
+    (ops/blocked_hex.py); this explicit form is the reference for tests.
+    """
+    nx, ny, nz = grid.nn
+    N = np.ones((nx, ny, nz, 3), dtype=dtype)
+    N[0, :, :, :] = 0.0  # clamped wall
+
+    RHS = np.zeros((nx, ny, nz, 3), dtype=dtype)
+    load = -0.001
+    RHS[nx - 1, :, 0, 2] = load
+    RHS[nx - 1, 0, 0, 2] = load / 2.0
+    RHS[nx - 1, ny - 1, 0, 2] = load / 2.0
+    RHS *= N
+    return N, RHS
+
+
+class PhysicsResult(NamedTuple):
+    u: torch.Tensor  # state field (nx, ny, nz, 3)
+    iters: int  # Krylov iterations
+    relres: torch.Tensor  # final relative residual, 0-d
+    fx: torch.Tensor  # compliance  U^T K U, 0-d
+    gx: torch.Tensor  # (m,) constraints; gx[0] = mean(xPhys) - volfrac
+    dfdx: torch.Tensor  # (ex, ey, ez) compliance sensitivity
+    dgdx: torch.Tensor  # (m, ex, ey, ez) constraint sensitivities
+
+
+class LinearElasticity:
+    """Cantilever elasticity on the structured grid (LinearElasticity.cc)."""
+
+    def __init__(self, cfg, grid: Optional[Grid] = None, *,
+                 device: torch.device):
+        self.cfg = cfg
+        self.grid = grid or Grid.from_config(cfg)
+        self.device = torch.device(device)
+        self.dtype = cfg.torch_dtype
+        self.KE = hex8_stiffness(*self.grid.h, cfg.nu)  # f64 numpy
+        # per-level rediscretized element matrices (coarse nodes coincide
+        # with fine nodes at even indices)
+        grids = self.grid.hierarchy(cfg.nlvls)
+        KEs = [hex8_stiffness(*g.h, cfg.nu) for g in grids]
+        self.solver = BlockedElasticityMG(
+            grids,
+            KEs,
+            device=self.device,
+            smooth_sweeps=cfg.smooth_sweeps,
+            cheby_lower=cfg.resolve_cheby_lower(cfg.ndof),
+            cheby_upper=cfg.cheby_upper,
+            coarse_rtol=cfg.coarse_rtol,
+            coarse_maxit=cfg.coarse_maxit,
+            precise_dots=cfg.precise_dots,
+        )
+
+    # -- SIMP interpolation (LinearElasticity.cc:519) ------------------ #
+
+    def simp(self, xPhys: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return cfg.Emin + xPhys**cfg.penal * (cfg.Emax - cfg.Emin)
+
+    # -- state solve --------------------------------------------------- #
+
+    def solve_state(self, xPhys: torch.Tensor,
+                    u0: Optional[torch.Tensor] = None) -> CGResult:
+        """SolveState (LinearElasticity.cc:182-223): set the element scale,
+        rebuild the MG setup, solve from the warm start u0 (nodal); the
+        returned solution is nodal (nx, ny, nz, 3)."""
+        cfg = self.cfg
+        op0 = self.solver.ops[0]
+        E = self.simp(xPhys.to(self.dtype))
+        b = op0.cantilever_rhs(dtype=torch.float32)
+        if u0 is None:
+            x0 = torch.zeros_like(b)
+        else:
+            x0 = op0.mask0(op0.to_blocked(u0))
+        res = self.solver.solve(
+            E, b, x0, rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit,
+            ksp_type=cfg.ksp_type,
+        )
+        return CGResult(
+            x=op0.from_blocked(res.x, self.dtype),
+            iters=res.iters,
+            relres=res.relres,
+        )
+
+    # -- objective / constraints / sensitivities ----------------------- #
+
+    def _objective_parts(self, xPhys: torch.Tensor, u: torch.Tensor):
+        cfg = self.cfg
+        uKu = quadform(u, self.KE)  # (ex, ey, ez)
+        E = self.simp(xPhys)
+        fx = accurate_sum(E * uKu, cfg.precise_dots)
+        nelem = xPhys.numel()
+        gx0 = accurate_sum(xPhys, cfg.precise_dots) / nelem - cfg.volfrac
+        dfdx = (
+            -cfg.penal * xPhys ** (cfg.penal - 1.0) * (cfg.Emax - cfg.Emin)
+        ) * uKu
+        dgdx = torch.full(
+            (cfg.m,) + tuple(xPhys.shape), 1.0 / nelem, dtype=self.dtype,
+            device=xPhys.device,
+        )
+        gx = torch.zeros((cfg.m,), dtype=self.dtype, device=xPhys.device)
+        gx[0] = gx0
+        return fx.to(self.dtype), gx, dfdx, dgdx
+
+    def compute_objective_constraints_sensitivities(
+        self, xPhys: torch.Tensor, u0: Optional[torch.Tensor] = None
+    ) -> PhysicsResult:
+        """ComputeObjectiveConstraintsSensitivities
+        (LinearElasticity.cc:363-445): the state solve, then the objective
+        from its solution."""
+        res = self.solve_state(xPhys, u0)
+        fx, gx, dfdx, dgdx = self._objective_parts(
+            xPhys.to(self.dtype), res.x
+        )
+        return PhysicsResult(
+            u=res.x, iters=res.iters, relres=res.relres,
+            fx=fx, gx=gx, dfdx=dfdx, dgdx=dgdx,
+        )

@@ -1,0 +1,132 @@
+"""The resident operator: solver vectors live in kernel K1's layout for the
+whole solve.
+
+Layout: a vector is a contiguous ``(3, nx, ny, nz)`` f32 tensor (component
+major, z fastest) and the element coefficient a contiguous
+``(nx-1, ny-1, nz-1)`` f32 tensor.  Every solver operation (axpys, Jacobi
+scaling, Chebyshev recurrences, dots, MG transfers) works on that layout;
+the nodal ``(nx, ny, nz, 3)`` form appears only at solve entry and exit.
+No position of the layout is padding, so every position is owned and the
+ownership-weighted reductions of the JAX package reduce to plain sums.
+
+Boundary conditions are index predicates, never stored fields: the
+cantilever's clamped wall is the x == 0 node plane (`mask0`,
+LinearElasticity.cc:143-156), the line load is the edge (x = nx-1, z = 0)
+(`cantilever_rhs`, LinearElasticity.cc:158-171).
+
+Kernel K1 (csrc/hex_operator.cu) computes the free-BC operator, optionally
+with the x == 0 plane masked in the same pass (`apply`).  For CPU tensors
+the wrapper runs the plain version, `apply_hex_operator` then `mask0`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from topopt_in_petsc_tpu_torch.ops.cuda_build import (
+    CudaKernel,
+    check_cuda_tensor,
+)
+from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
+
+HEX_OPERATOR = CudaKernel("hex_operator_f32")
+
+
+def mask0(vb: torch.Tensor) -> torch.Tensor:
+    """Zero the x == 0 node plane (cantilever clamped wall)."""
+    out = vb.clone()
+    out[:, 0] = 0.0
+    return out
+
+
+def hex_operator(
+    vb: torch.Tensor, eb: torch.Tensor, KE: np.ndarray, mask_x0: bool
+) -> torch.Tensor:
+    """K1: ``K(E) v`` on the resident layout, with the x == 0 plane zeroed
+    when `mask_x0`.  vb: (3, nx, ny, nz) f32, eb: (nx-1, ny-1, nz-1) f32,
+    KE: the (24, 24) element matrix of this grid level."""
+    if vb.device.type == "cpu":
+        KEt = torch.as_tensor(np.asarray(KE), dtype=vb.dtype)
+        out = apply_hex_operator(vb.permute(1, 2, 3, 0), eb, KEt)
+        out = out.permute(3, 0, 1, 2).contiguous()
+        return mask0(out) if mask_x0 else out
+    _, nx, ny, nz = vb.shape
+    check_cuda_tensor(vb, "v", (3, nx, ny, nz), torch.float32)
+    check_cuda_tensor(eb, "E", (nx - 1, ny - 1, nz - 1), torch.float32)
+    if 3 * nx * ny * nz >= 2**31:
+        raise ValueError(f"grid {(nx, ny, nz)} exceeds 32-bit indexing")
+    ke = np.ascontiguousarray(KE, dtype=np.float32)
+    if ke.shape != (24, 24):
+        raise ValueError(f"KE: expected shape (24, 24), got {ke.shape}")
+    out = torch.empty_like(vb)
+    HEX_OPERATOR(
+        vb.data_ptr(), eb.data_ptr(), out.data_ptr(), ke.ctypes.data,
+        nx, ny, nz, int(mask_x0),
+    )
+    return out
+
+
+class BlockedHexOperator:
+    """Resident-layout matrix-free K(x) for one grid level."""
+
+    def __init__(self, nn: Tuple[int, int, int], KE: np.ndarray, *,
+                 device: torch.device):
+        self.nn = tuple(nn)
+        self.dof = 3
+        self.device = torch.device(device)
+        # KE goes to the kernel by value, as f32
+        self.KE = np.ascontiguousarray(KE, dtype=np.float32)
+
+    # -- layout conversion (solve entry/exit only) ---------------------- #
+
+    def to_blocked(self, u: torch.Tensor) -> torch.Tensor:
+        """(nx, ny, nz, 3) -> (3, nx, ny, nz) f32."""
+        return u.to(torch.float32).permute(3, 0, 1, 2).contiguous()
+
+    def from_blocked(self, vb: torch.Tensor, dtype=None) -> torch.Tensor:
+        """(3, nx, ny, nz) -> (nx, ny, nz, 3)."""
+        out = vb.permute(1, 2, 3, 0).contiguous()
+        return out if dtype is None else out.to(dtype)
+
+    def prepare_coef(self, E: torch.Tensor) -> torch.Tensor:
+        """Element coefficient in the kernel's layout: contiguous f32."""
+        return E.to(torch.float32).contiguous()
+
+    # -- resident-layout operations ------------------------------------- #
+
+    def matvec(self, vb: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
+        """Free-BC ``K @ v``."""
+        return hex_operator(vb, eb, self.KE, mask_x0=False)
+
+    def apply(self, vb: torch.Tensor, eb: torch.Tensor) -> torch.Tensor:
+        """``mask0(K @ v)`` in one pass: the solver's operator."""
+        return hex_operator(vb, eb, self.KE, mask_x0=True)
+
+    mask0 = staticmethod(mask0)
+
+    def cantilever_rhs(self, load: float = -0.001,
+                       dtype=torch.float32) -> torch.Tensor:
+        """Resident RHS of the reference line load: F_z = load along the
+        edge (x = nx-1, z = 0), halved at the two y corners
+        (LinearElasticity.cc:158-171)."""
+        nx, ny, nz = self.nn
+        y = torch.arange(ny, device=self.device)
+        w = torch.where((y == 0) | (y == ny - 1), 0.5, 1.0).to(dtype)
+        b = torch.zeros((3, nx, ny, nz), dtype=dtype, device=self.device)
+        b[2, nx - 1, :, 0] = torch.tensor(load, dtype=dtype) * w
+        return b
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor,
+            precise: bool = True) -> torch.Tensor:
+        """Inner product; f32 products summed in f64 when `precise`."""
+        if precise:
+            return torch.sum(a * b, dtype=torch.float64)
+        return torch.sum(a * b)
+
+    def asum(self, a: torch.Tensor, precise: bool = True) -> torch.Tensor:
+        if precise:
+            return torch.sum(a, dtype=torch.float64)
+        return torch.sum(a)

@@ -1,0 +1,131 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at the first launch (never
+at import), goes to ``build/topopt_torch_kernels/`` beside the package,
+and is keyed by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+SOURCES = ("hex_operator.cu", "quadform.cu")
+BUILD_DIR = _PKG.parent / "build" / "topopt_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: (argtypes), all returning cudaError_t
+_SIGNATURES = {
+    "hex_operator_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "quadform_f32": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+
+class _Library:
+    """The compiled library of this process, built at first use."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib = None
+        self.path = None
+        self.build_seconds = None  # None: loaded without compiling
+        self.build_log = ""
+
+    def _nvcc(self) -> str:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        if CUDA_HOME is None:
+            raise RuntimeError("nvcc not found: CUDA_HOME is not set")
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+    def build(self) -> Path:
+        srcs = [CSRC / s for s in SOURCES]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in srcs:
+            h.update(s.read_bytes())
+        path = BUILD_DIR / f"libtopopt_kernels_{h.hexdigest()[:16]}.so"
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [self._nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 *[str(s) for s in srcs]],
+                capture_output=True, text=True,
+            )
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{self.build_log}")
+            os.replace(tmp, path)
+            self.build_seconds = time.perf_counter() - t0
+        return path
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self.path = self.build()
+                lib = ctypes.CDLL(str(self.path))
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
+                lib.topopt_cuda_error_string.argtypes = (ctypes.c_int,)
+                lib.topopt_cuda_error_string.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+
+LIBRARY = _Library()
+
+
+class CudaKernel:
+    """One C entry point of the library, with its launch count.
+
+    `launches` grows by one for every launch and for nothing else; the
+    wrappers call the plain PyTorch version for CPU tensors, which does
+    not count.
+    """
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        lib = LIBRARY.get()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, self.symbol)(*args, stream)
+        if err != 0:
+            msg = lib.topopt_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol} launch failed: {msg}")
+        self.launches += 1
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of the given shape and
+    dtype (what the kernels take)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
