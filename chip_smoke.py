@@ -5,7 +5,7 @@ NVIDIA GPU.  Run from the repository root:  python3 chip_smoke.py
 Phases, each printing its lines before the next starts:
   1. environment: torch and CUDA versions, device name, nvidia-smi's name
      and power limit;
-  2. build: the hand-written kernels K1 and K2 with nvcc, and its time;
+  2. build: the hand-written kernels K1-K4 with nvcc, and its time;
   3. kernel parity: each kernel against its plain PyTorch version on the
      card at 9x7x5, 65x33x33 and 13x11x7 nodes (rtol 2e-5, atol 1e-5 of
      max|ref|, the JAX package's bar for its Pallas kernels);
@@ -13,10 +13,19 @@ Phases, each printing its lines before the next starts:
      median of 15 runs each, in turns);
   5. the default 65x33x33 run through the CLI entry for 10 iterations,
      held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
-     CPU), with the launch counts of both kernels over that run;
+     CPU), with the launch counts of K1 and K2 over that run;
   6. the 257^3 run (50.9M dof) for 2 iterations: iteration-1 compliance
      against the JAX package's 257^3 golden history, both solves
      converged;
+  7. the 65x33x33 run with the PDE filter (-filter 2) for 10 iterations,
+     held against docs/jax_cpu_history_65x33x33_filter2.npz, with the
+     launch counts of K1, K2 and K3;
+  8. the 65x33x33 run of the nodal solve (-operator_impl pallas) for 10
+     iterations, held against docs/jax_cpu_history_65x33x33.npz (solver
+     iterations within 1), with the launch counts of K4 and K2;
+  9. the 257^3 run of each of those two paths for 2 iterations, held to
+     the golden iteration-1 compliance as in phase 6 (the design is
+     uniform there and the PDE filter preserves constants);
 then one JSON line of per-kernel results and, last, the JSON status line.
 Any failure raises: the exit code is nonzero and no status line is
 printed.  Nothing falls back to the CPU or to a plain version.
@@ -65,7 +74,8 @@ def phase_build():
     LIBRARY.get()
     dt = time.perf_counter() - t0
     for line in LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "entry function" in line):
             log(f"[2 build] ptxas: {line.strip()}")
     log(f"[2 build] {os.path.relpath(LIBRARY.path, REPO)} in {dt:.2f} s "
         f"(nvcc {LIBRARY.build_seconds} s)")
@@ -83,6 +93,40 @@ def _case(nn, seed, dev):
     E = torch.as_tensor(rng.uniform(1e-9, 1.0, size=grid.ne),
                         dtype=torch.float32, device=dev)
     return KE, u, E
+
+
+def _nodal_case(nn, seed, dev, dof):
+    """(element matrix, u, E) of K3 (dof 1) or K4 (dof 3) on one grid."""
+    from topopt_in_petsc_tpu_torch.grid import Grid
+    from topopt_in_petsc_tpu_torch.models.elements import (
+        helmholtz_element_matrices,
+        hex8_stiffness,
+    )
+
+    grid = Grid(nn=nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
+    if dof == 1:  # the default rmin 0.08, R = rmin / (2 sqrt 3)
+        KE = helmholtz_element_matrices(*grid.h, 0.08 / (2 * 3**0.5))[0]
+    else:
+        KE = hex8_stiffness(*grid.h, 0.3)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.normal(size=(*nn, dof)), dtype=torch.float32,
+                        device=dev)
+    E = torch.as_tensor(rng.uniform(1e-3, 1.0, size=grid.ne),
+                        dtype=torch.float32, device=dev)
+    return np.ascontiguousarray(KE, dtype=np.float32), u, E
+
+
+def _plain_nodal(u, E, KE):
+    from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
+
+    return apply_hex_operator(u, E, torch.as_tensor(KE, device=u.device))
+
+
+def _nodal_wrappers():
+    """name -> (dof, wrapper) of K3 and K4."""
+    from topopt_in_petsc_tpu_torch.ops.nodal_hex import helmholtz, nodal_hex
+
+    return {"K3": (1, helmholtz), "K4": (3, nodal_hex)}
 
 
 def _plain_k1(vb, eb, KE, mask_x0):
@@ -133,6 +177,10 @@ def phase_parity(dev):
         u = vb.permute(1, 2, 3, 0).contiguous()
         errs["K2"] = max(errs["K2"], _compare(
             f"K2 {nn}", quadform(u, KE), _plain_k2(u, KE)))
+        for name, (dof, wrapper) in _nodal_wrappers().items():
+            K, un, En = _nodal_case(nn, 10 + i, dev, dof)
+            errs[name] = max(errs.get(name, 0.0), _compare(
+                f"{name} {nn}", wrapper(un, En, K), _plain_nodal(un, En, K)))
     torch.cuda.synchronize()
     return errs
 
@@ -171,7 +219,17 @@ def phase_kernel_times(dev):
     log(f"[4 times] 257^3 K2 quadform {k2:.4f} ms, plain {p2:.4f} ms")
     del vb, E, u
     torch.cuda.empty_cache()
-    return {"K1": (k1, p1), "K2": (k2, p2)}
+    times = {"K1": (k1, p1), "K2": (k2, p2)}
+    for name, (dof, wrapper) in _nodal_wrappers().items():
+        K, un, En = _nodal_case(nn, 8, dev, dof)
+        times[name] = tuple(_median_ms([
+            lambda: wrapper(un, En, K), lambda: _plain_nodal(un, En, K),
+        ]))
+        log(f"[4 times] 257^3 {name} {wrapper.__name__} "
+            f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
+        del un, En
+        torch.cuda.empty_cache()
+    return times
 
 
 def _run_cli(args, workdir):
@@ -185,51 +243,89 @@ def _run_cli(args, workdir):
 
 
 def phase_default_run():
-    from topopt_in_petsc_tpu_torch.ops.blocked_hex import HEX_OPERATOR
-    from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
-
-    with np.load(os.path.join(REPO, "docs",
-                              "jax_cpu_history_65x33x33.npz")) as r:
-        ref = {k: r[k] for k in r.files}
+    kernels = _kernel_objects()
+    ref = _load_history("jax_cpu_history_65x33x33.npz")
     with tempfile.TemporaryDirectory() as tmp:
-        HEX_OPERATOR.launches = QUADFORM.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         h = _run_cli(["-maxItr", "10"], tmp)
         torch.cuda.synchronize()
-        launches = {"K1": HEX_OPERATOR.launches, "K2": QUADFORM.launches}
+        launches = {n: kernels[n].launches for n in ("K1", "K2")}
         files = set(os.listdir(tmp))
     log(f"[5 default] launches over the run: {launches}")
     for name in ("output_00001.vtu", "output_00011.vtu", "Restart00.npz",
                  "Restart01.npz", "RestartSol00.npz"):
         if name not in files:
             raise AssertionError(f"{name} was not written")
+    _check_history("5 default", h, ref, launches)
+    return launches
+
+
+def _check_history(tag, h, ref, launches, iters_within=None):
+    """Hold a 10-iteration history to the JAX package's CPU history and
+    every kernel of the path to at least one launch."""
     if len(h["fx"]) != 10 or not all(
             np.isfinite(h[k]).all() for k in ("fx", "gx", "ch", "mnd")):
         raise AssertionError(f"bad history: {h}")
     dfx = np.max(np.abs(h["fx"] - ref["fx"]) / np.abs(ref["fx"]))
     dgx = np.max(np.abs(h["gx"] - ref["gx"]))
     dch = np.max(np.abs(h["ch"] - ref["ch"]))
-    log(f"[5 default] vs JAX CPU history: fx max rel {dfx:.3e} "
+    dit = int(np.max(np.abs(h["iters"] - ref["iters"])))
+    log(f"[{tag}] vs JAX CPU history: fx max rel {dfx:.3e} "
         f"(bar {FX_RTOL}), gx max abs {dgx:.3e} (bar {GX_ATOL}), "
-        f"ch max abs {dch:.3e} (bar {CH_ATOL})")
-    log(f"[5 default] s/iteration {h['time'].tolist()}, "
+        f"ch max abs {dch:.3e} (bar {CH_ATOL}), solver iterations max "
+        f"diff {dit} (bar {iters_within})")
+    log(f"[{tag}] s/iteration {h['time'].tolist()}, "
         f"solver iterations {h['iters'].tolist()}")
     if not (dfx <= FX_RTOL and dgx <= GX_ATOL and dch <= CH_ATOL):
-        raise AssertionError("default run disagrees with the JAX history")
+        raise AssertionError(f"{tag} run disagrees with the JAX history")
+    if iters_within is not None and dit > iters_within:
+        raise AssertionError(f"{tag} solver iterations off the history")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+
+
+def _load_history(name):
+    with np.load(os.path.join(REPO, "docs", name)) as r:
+        return {k: r[k] for k in r.files}
+
+
+def _kernel_objects():
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import HEX_OPERATOR
+    from topopt_in_petsc_tpu_torch.ops.nodal_hex import HELMHOLTZ, NODAL_HEX
+    from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
+
+    return {"K1": HEX_OPERATOR, "K2": QUADFORM, "K3": HELMHOLTZ,
+            "K4": NODAL_HEX}
+
+
+def phase_path_run(tag, args, history, names, iters_within=None):
+    """One 10-iteration 65x33x33 run of a path through the CLI entry, with
+    the launch counts of its kernels `names` over that run."""
+    kernels = _kernel_objects()
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in kernels.values():
+            k.launches = 0
+        h = _run_cli([*args, "-maxItr", "10", "-output_cadence_vtu", "0"],
+                     tmp)
+        torch.cuda.synchronize()
+        launches = {n: kernels[n].launches for n in names}
+    log(f"[{tag}] launches over the run: {launches}")
+    _check_history(tag, h, _load_history(history), launches, iters_within)
     return launches
 
 
-def phase_real_size():
+def phase_real_size(tag="6 257^3", args=()):
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         h = _run_cli(["-nx", "257", "-ny", "257", "-nz", "257",
                       "-nlvls", "5", "-maxItr", "2",
-                      "-output_cadence_vtu", "0"], tmp)
+                      "-output_cadence_vtu", "0", *args], tmp)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     d = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
-    log(f"[6 257^3] fx {h['fx'].tolist()}, it.1 rel diff to golden "
+    log(f"[{tag}] fx {h['fx'].tolist()}, it.1 rel diff to golden "
         f"{d:.3e}, s/iteration {h['time'].tolist()}, solver iterations "
         f"{h['iters'].tolist()}, stalled {h['stalled'].tolist()}, "
         f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
@@ -253,6 +349,14 @@ def main() -> int:
     times = phase_kernel_times(dev)
     launches = phase_default_run()
     phase_real_size()
+    launches["K3"] = phase_path_run(
+        "7 filter 2", ["-filter", "2"],
+        "jax_cpu_history_65x33x33_filter2.npz", ("K1", "K2", "K3"))["K3"]
+    launches["K4"] = phase_path_run(
+        "8 nodal", ["-operator_impl", "pallas"],
+        "jax_cpu_history_65x33x33.npz", ("K4", "K2"), iters_within=1)["K4"]
+    phase_real_size("9 257^3 filter 2", ["-filter", "2"])
+    phase_real_size("9 257^3 nodal", ["-operator_impl", "pallas"])
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",
@@ -265,6 +369,16 @@ def main() -> int:
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:274",
          "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        {"name": "helmholtz (K3)", "route": "cuda",
+         "source": src + "nodal_hex.cu",
+         "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:416",
+         "launches": launches["K3"], "max_abs_err": errs["K3"],
+         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
+        {"name": "nodal_hex (K4)", "route": "cuda",
+         "source": src + "nodal_hex.cu",
+         "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:59",
+         "launches": launches["K4"], "max_abs_err": errs["K4"],
+         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -64,6 +64,9 @@ ARGVS = [
     ["-nx", "257", "-ny", "257", "-nz", "257", "-nlvls", "5",
      "-output_cadence_vtu", "0", "-restart", "0", "-ksp_rtol", "1e-6",
      "-cheby_lower", "0.1", "-smooth_sweeps", "3", "-precise_dots", "0"],
+    ["-filter", "2", "-pde_nlvls", "4", "-pde_rtol", "1e-7",
+     "-pde_maxit", "40"],
+    ["-operator_impl", "pallas", "-nlvls", "3"],
 ]
 
 
@@ -85,8 +88,8 @@ def test_parsed_config_and_banner_match(argv):
     (["-park_design", "1"], 10),
     (["-mg_dtype", "bfloat16"], 12),
     (["-mg_dtype", "mixed"], 12),
-    (["-filter", "2"], 13),
-    (["-operator_impl", "pallas"], 14),
+    (["-coarse_op", "galerkin_octant"], 14),
+    (["-tail_split", "1"], 10),
     (["-operator_impl", "xla"], 14),
     (["-ksp_type", "fgmres"], 14),
     (["-dtype", "float64"], 14),
@@ -103,3 +106,12 @@ def test_device_flag():
     assert TopOptConfig.from_args(["-device", "cpu"]).device == "cpu"
     with pytest.raises(ValueError):
         TopOptConfig.from_args(["-device", "tpu"])
+
+
+def test_pde_levels_must_halve_the_grid():
+    # 64x32x32 elements: 6 PDE levels need 2^5 to divide each count
+    TopOptConfig.from_args(["-filter", "2", "-pde_nlvls", "6"])
+    with pytest.raises(ValueError, match="PDE filter"):
+        TopOptConfig.from_args(["-filter", "2", "-pde_nlvls", "7"])
+    # checked only where the PDE filter runs
+    TopOptConfig.from_args(["-filter", "1", "-pde_nlvls", "7"])

@@ -1,8 +1,13 @@
 """The whole slice, port vs JAX package: the port's `Driver` against the
-JAX package's split `Driver` on its resident path (`operator_impl
-"blocked"`, Pallas in interpret mode), 17x9x9 nodes, 2 MG levels, density
-filter with a 3^3 stencil, 3 iterations; then restart files carried
-across the two packages in both directions.
+JAX package's split `Driver`, 17x9x9 nodes, 2 MG levels, 3 iterations,
+on each path of the port:
+  - default: density filter with a 3^3 stencil, the resident solve (JAX
+    `operator_impl "blocked"`, Pallas in interpret mode);
+  - filter2: the Helmholtz PDE filter over the resident solve (JAX
+    `operator_impl "blocked"`, `filter 2`);
+  - pallas: the nodal solve (JAX `operator_impl "xla"`, the same nodal
+    math in plain XLA);
+then restart files carried across the two packages in both directions.
 
 Tolerances, from the measured gap (about 3e-5 relative in fx over these 3
 iterations, f32 fields with sums in another order): fx rtol 2e-4; gx, ch
@@ -45,9 +50,17 @@ def _run(driver_cls, cfg):
     return hist, buf.getvalue().splitlines()
 
 
+# path -> (the port's options, the JAX package's options)
+PATHS = {
+    "default": ({}, {}),
+    "filter2": ({"filter": 2}, {"filter": 2}),
+    "pallas": ({"operator_impl": "pallas"}, {"operator_impl": "xla"}),
+}
+
+
 def _jax(workdir, **kw):
-    cfg = JaxConfig(**ARGS, operator_impl="blocked", workdir=str(workdir),
-                    **kw)
+    kw.setdefault("operator_impl", "blocked")
+    cfg = JaxConfig(**ARGS, workdir=str(workdir), **kw)
     cfg.validate()
     return _run(JaxDriver, cfg)
 
@@ -71,22 +84,48 @@ def runs(tmp_path_factory):
     return _jax(jdir, maxItr=3), _port(pdir, maxItr=3), pdir
 
 
-def test_slice_history_matches_jax(runs):
-    (jh, _), (ph, _), _ = runs
+@pytest.fixture(scope="module")
+def path_runs(runs, tmp_path_factory):
+    """path -> ((JAX history, log), (port history, log)), each run once."""
+    cache = {"default": runs[:2]}
+
+    def get(path):
+        if path not in cache:
+            port_kw, jax_kw = PATHS[path]
+            cache[path] = (
+                _jax(tmp_path_factory.mktemp(f"jax_{path}"), maxItr=3,
+                     **jax_kw),
+                _port(tmp_path_factory.mktemp(f"port_{path}"), maxItr=3,
+                      **port_kw),
+            )
+        return cache[path]
+
+    return get
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_slice_history_matches_jax(path_runs, path):
+    (jh, _), (ph, _) = path_runs(path)
     assert len(ph["fx"]) == len(jh["fx"]) == 3
     _assert_close(ph, jh, [(i, i) for i in range(3)])
     assert not any(ph["stalled"])
 
 
-def test_log_lines_match_jax_format(runs):
-    (_, jlog), (_, plog), _ = runs
+@pytest.mark.parametrize("path", PATHS)
+def test_log_lines_match_jax_format(path_runs, path):
+    (_, jlog), (_, plog) = path_runs(path)
     banner = [line for line in jlog if line.startswith("#")]
     assert [line for line in plog if line.startswith("#")] == banner
-    body = [line for line in plog if not line.startswith("#")]
+    # lines outside the iteration log ("Done setting up the PDEFilter")
+    # are the JAX package's, in its order
+    steps = ("State solver", "It.:")
+    assert [line for line in plog if not line.startswith(("#", *steps))] \
+        == [line for line in jlog if not line.startswith(("#", *steps))]
+    body = [line for line in plog if line.startswith(steps)]
     assert len(body) == 6
     for k, line in enumerate(body):
         assert LOG_LINES[k % 2].match(line), line
-    jbody = [line for line in jlog if not line.startswith("#")]
+    jbody = [line for line in jlog if line.startswith(steps)]
     assert [line.split(":")[0] for line in body] == \
         [line.split(":")[0] for line in jbody]
 

@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from topopt_in_petsc_tpu_torch.grid import Grid
-from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
+from topopt_in_petsc_tpu_torch.models.elements import (
+    helmholtz_element_matrices,
+    hex8_stiffness,
+)
 from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
     HEX_OPERATOR,
     hex_operator,
@@ -23,6 +26,12 @@ from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
 from topopt_in_petsc_tpu_torch.ops.hex_operator import (
     apply_hex_operator,
     element_quadratic_form,
+)
+from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
+    HELMHOLTZ,
+    NODAL_HEX,
+    helmholtz,
+    nodal_hex,
 )
 from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM, quadform
 
@@ -81,6 +90,35 @@ def test_k2_matches_plain(dev, nn):
     _close(got, element_quadratic_form(un, KEt))
 
 
+# kernel, its wrapper, dof, element matrix of a grid
+NODAL = {
+    "K3": (HELMHOLTZ, helmholtz, 1,
+           lambda g: helmholtz_element_matrices(*g.h, 0.05)[0]),
+    "K4": (NODAL_HEX, nodal_hex, 3, lambda g: hex8_stiffness(*g.h, 0.3)),
+}
+
+
+@pytest.mark.parametrize("name", NODAL)
+@pytest.mark.parametrize("nn", SHAPES)
+def test_nodal_kernels_match_plain(dev, nn, name):
+    kernel, wrapper, dof, matrix = NODAL[name]
+    grid = Grid(nn=nn, lo=(0, 0, 0), hi=(2, 1, 1))
+    KE = np.ascontiguousarray(matrix(grid), dtype=np.float32)
+    rng = np.random.default_rng(sum(nn) + dof)
+    u = torch.as_tensor(rng.normal(size=(*nn, dof)), dtype=torch.float32,
+                        device=dev)
+    E = torch.as_tensor(rng.uniform(1e-3, 1.0, size=grid.ne),
+                        dtype=torch.float32, device=dev)
+    before = kernel.launches
+    got = wrapper(u, E, KE)
+    assert kernel.launches == before + 1
+    ref = apply_hex_operator(u, E, torch.as_tensor(KE, device=dev))
+    _close(got, ref)
+    # the plain version on CPU tensors launches nothing
+    wrapper(u.cpu(), E.cpu(), KE)
+    assert kernel.launches == before + 1
+
+
 def test_wrappers_refuse_bad_tensors(dev):
     KE, u, E = _case((9, 7, 5), dev)
     with pytest.raises(ValueError):
@@ -89,3 +127,10 @@ def test_wrappers_refuse_bad_tensors(dev):
         hex_operator(u, E[:-1], KE, True)
     with pytest.raises(ValueError):
         quadform(u.permute(1, 2, 3, 0), KE)  # not contiguous
+    KE32 = np.ascontiguousarray(KE, dtype=np.float32)
+    with pytest.raises(ValueError):
+        nodal_hex(u.permute(1, 2, 3, 0), E, KE32)  # not contiguous
+    with pytest.raises(ValueError):
+        nodal_hex(u.permute(1, 2, 3, 0).contiguous(), E.double(), KE32)
+    with pytest.raises(ValueError):
+        helmholtz(u[:1].permute(1, 2, 3, 0).contiguous(), E, KE32)

@@ -1,9 +1,18 @@
 """Linear elasticity physics: cantilever BC/load, state solve, compliance.
 
 Counterpart of the reference LinearElasticity class (LinearElasticity.cc)
-on the resident path of the JAX package's `models/elasticity.py`: the
-MG-PCG state solve runs in kernel K1's layout (solvers/blocked_mg.py), and
-the compliance and its sensitivity come from kernel K2 (ops/quadform.py).
+on two paths of the JAX package's `models/elasticity.py`:
+
+- resident (`-operator_impl auto|blocked`, the default): the MG-PCG state
+  solve runs in kernel K1's layout (solvers/blocked_mg.py), with the
+  boundary conditions as index predicates;
+- nodal (`-operator_impl pallas`): the solve runs on the nodal
+  ``(nx, ny, nz, 3)`` field with stored Dirichlet masks and load, in a
+  dof=3 `GeometricMultigrid` whose every level applies kernel K4
+  (solvers/multigrid.py, ops/nodal_hex.py).
+
+On both, the compliance and its sensitivity come from kernel K2
+(ops/quadform.py).
 """
 
 from __future__ import annotations
@@ -17,7 +26,8 @@ from topopt_in_petsc_tpu_torch.grid import Grid
 from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
 from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 from topopt_in_petsc_tpu_torch.solvers.blocked_mg import BlockedElasticityMG
-from topopt_in_petsc_tpu_torch.solvers.cg import CGResult, accurate_sum
+from topopt_in_petsc_tpu_torch.solvers.cg import CGResult, accurate_sum, pcg
+from topopt_in_petsc_tpu_torch.solvers.multigrid import GeometricMultigrid
 
 
 def build_cantilever_bc(grid: Grid, dtype=np.float64):
@@ -28,8 +38,8 @@ def build_cantilever_bc(grid: Grid, dtype=np.float64):
       - line load F_z = -0.001 along the edge (x = xcmax, z = zcmin),
         halved at the two corners (y = ycmin and y = ycmax).
 
-    The solver builds the same sets from index predicates
-    (ops/blocked_hex.py); this explicit form is the reference for tests.
+    The nodal solve stores these fields; the resident solver builds the
+    same sets from index predicates (ops/blocked_hex.py).
     """
     nx, ny, nz = grid.nn
     N = np.ones((nx, ny, nz, 3), dtype=dtype)
@@ -68,9 +78,7 @@ class LinearElasticity:
         # with fine nodes at even indices)
         grids = self.grid.hierarchy(cfg.nlvls)
         KEs = [hex8_stiffness(*g.h, cfg.nu) for g in grids]
-        self.solver = BlockedElasticityMG(
-            grids,
-            KEs,
+        mg_args = dict(
             device=self.device,
             smooth_sweeps=cfg.smooth_sweeps,
             cheby_lower=cfg.resolve_cheby_lower(cfg.ndof),
@@ -79,6 +87,18 @@ class LinearElasticity:
             coarse_maxit=cfg.coarse_maxit,
             precise_dots=cfg.precise_dots,
         )
+        self.solver = self.mg = None
+        if cfg.operator_impl != "pallas":
+            self.solver = BlockedElasticityMG(grids, KEs, **mg_args)
+            return
+        # nodal path: per-level masks by node subsampling (coarse nodes
+        # coincide with fine nodes at even indices)
+        N, RHS = build_cantilever_bc(self.grid)
+        self.RHS = torch.as_tensor(RHS, dtype=torch.float32,
+                                   device=self.device)
+        masks = [N[:: 2**l, :: 2**l, :: 2**l] for l in range(cfg.nlvls)]
+        self.mg = GeometricMultigrid(grids, KEs, masks, dof=3,
+                                     coarse_op=cfg.coarse_op, **mg_args)
 
     # -- SIMP interpolation (LinearElasticity.cc:519) ------------------ #
 
@@ -94,8 +114,10 @@ class LinearElasticity:
         rebuild the MG setup, solve from the warm start u0 (nodal); the
         returned solution is nodal (nx, ny, nz, 3)."""
         cfg = self.cfg
-        op0 = self.solver.ops[0]
         E = self.simp(xPhys.to(self.dtype))
+        if self.mg is not None:
+            return self._solve_nodal(E, u0)
+        op0 = self.solver.ops[0]
         b = op0.cantilever_rhs(dtype=torch.float32)
         if u0 is None:
             x0 = torch.zeros_like(b)
@@ -109,6 +131,20 @@ class LinearElasticity:
             x=op0.from_blocked(res.x, self.dtype),
             iters=res.iters,
             relres=res.relres,
+        )
+
+    def _solve_nodal(self, E: torch.Tensor,
+                     u0: Optional[torch.Tensor]) -> CGResult:
+        """The nodal solve: flexible PCG from the unmasked warm start, with
+        A = N K N + (I - N) and one V-cycle as the preconditioner."""
+        cfg = self.cfg
+        levels = self.mg.setup(E)
+        x0 = torch.zeros_like(self.RHS) if u0 is None else u0.contiguous()
+        return pcg(
+            lambda v: self.mg.apply(0, levels[0]["coef"], v),
+            self.RHS, x0, self.mg.preconditioner(levels),
+            rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit, flexible=True,
+            precise_dots=cfg.precise_dots,
         )
 
     # -- objective / constraints / sensitivities ----------------------- #

@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface, loaded with ctypes.  The build runs at the first launch (never
-at import), goes to ``build/topopt_torch_kernels/`` beside the package,
-and is keyed by a hash of the sources and flags, so an edited source is
+The sources are compiled with nvcc, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes.  The build runs at the first launch (never at
+import), goes to ``build/topopt_torch_kernels/`` beside the package, and
+is keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
 """
 
@@ -21,11 +22,12 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("hex_operator.cu", "quadform.cu")
+SOURCES = ("hex_operator.cu", "quadform.cu", "nodal_hex.cu")
 BUILD_DIR = _PKG.parent / "build" / "topopt_torch_kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+    "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,6 +36,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "hex_operator_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "quadform_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "helmholtz_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "nodal_hex_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -63,14 +67,31 @@ class _Library:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            nvcc = self._nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [self._nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 *[str(s) for s in srcs]],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                )
+                for s, o in zip(srcs, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            link = None
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run(
+                    [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                     *[str(o) for o in objs]],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                )
+                logs.append(link.stdout)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            self.build_log = "".join(logs)
+            if link is None or link.returncode != 0:
                 raise RuntimeError(f"nvcc failed:\n{self.build_log}")
             os.replace(tmp, path)
             self.build_seconds = time.perf_counter() - t0

@@ -9,8 +9,8 @@ the convolution of ones, which reproduces the reference's boundary
 truncation.
 
 filterType follows TopOpt.cc:125: 0 = sensitivity filter, 1 = density
-filter (default), anything else but 2 = no filtering.  The PDE filter
-(2) is refused by `TopOptConfig.validate`.
+filter (default), 2 = the Helmholtz PDE filter (opt/pde_filter.py),
+anything else = no filtering.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def smooth_projection_chainrule(x, beta: float, eta: float):
 
 
 class DesignFilter:
-    """Filter::FilterProject / Gradients for filter types 0 and 1."""
+    """Filter::FilterProject / Gradients, dispatching on the filter type."""
 
     def __init__(self, cfg, grid, *, device: torch.device):
         self.cfg = cfg
@@ -79,9 +79,15 @@ class DesignFilter:
         self.filterType = cfg.filter
         self.dtype = cfg.torch_dtype
         self.device = torch.device(device)
+        self.pdef = None
         self.kernel = None
         self.Hs = None
         self._fft_conv = None
+        if self.filterType == 2:
+            # imported here: opt/pde_filter.py imports this module
+            from topopt_in_petsc_tpu_torch.opt.pde_filter import PDEFilter
+
+            self.pdef = PDEFilter(cfg, grid, device=self.device)
         if self.filterType not in (0, 1):
             return
         s = filter_stencil_halfwidth(cfg.rmin, grid.h, grid.nn)
@@ -122,6 +128,10 @@ class DesignFilter:
         beta = float(cfg.beta if beta is None else beta)
         eta = float(cfg.eta if eta is None else eta)
         x = x.to(self.dtype)
+        if self.filterType == 2:
+            return self.pdef.filter_project_with_projection(
+                x, projection, beta, eta
+            )
         if self.filterType == 1:
             xTilde = self._conv(x) / self.Hs
         else:
@@ -147,6 +157,10 @@ class DesignFilter:
         x = x.to(self.dtype)
         dfdx = dfdx.to(self.dtype)
         dgdx = dgdx.to(self.dtype)
+        if self.filterType == 2:
+            return self.pdef.gradients_with_projection(
+                x, xTilde.to(self.dtype), dfdx, dgdx, projection, beta, eta
+            )
         if projection:
             dproj = smooth_projection_chainrule(
                 xTilde.to(self.dtype), beta, eta

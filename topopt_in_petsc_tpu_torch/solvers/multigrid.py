@@ -1,4 +1,5 @@
-"""Multigrid transfers on the structured hex grid.
+"""Geometric multigrid on the structured hex grid: the transfers and the
+nodal-layout V-cycle preconditioner.
 
 Separable trilinear interpolation (the reference's DMCreateInterpolation,
 LinearElasticity.cc:704), restriction as its exact adjoint (R = P^T), and
@@ -7,11 +8,36 @@ LinearElasticity.cc:704), restriction as its exact adjoint (R = P^T), and
 `prolong` and `restrict` act on three spatial axes of any field: the nodal
 ``(nx, ny, nz, dof)`` layout (axes 0-2, the default) or the resident
 ``(dof, nx, ny, nz)`` layout (axes 1-3).
+
+`GeometricMultigrid` is the JAX package's class of the same name on the
+nodal layout (reference PCMG stacks, LinearElasticity.cc:654-746 and
+PDEFilter.cc:290-380): Chebyshev-Jacobi smoothing, rediscretized coarse
+operators, a Jacobi-PCG coarse solve, and optional per-level Dirichlet
+masks.  Every level's operator is a hand-written kernel
+(ops/nodal_hex.py): K3 for dof 1 (the PDE filter), K4 for dof 3 (the
+nodal elasticity solve).
 """
 
 from __future__ import annotations
 
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
 import torch
+
+from topopt_in_petsc_tpu_torch.ops.hex_operator import (
+    hex_operator_absrowsum,
+    hex_operator_diagonal,
+)
+from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
+    make_helmholtz_apply,
+    make_nodal_hex_apply,
+)
+from topopt_in_petsc_tpu_torch.solvers.cg import pcg
+from topopt_in_petsc_tpu_torch.solvers.chebyshev import (
+    chebyshev_smooth,
+    gershgorin_lambda_max,
+)
 
 
 def _axis_slice(ndim: int, axis: int, sl: slice):
@@ -65,3 +91,131 @@ def coarsen_cell_field(E: torch.Tensor) -> torch.Tensor:
     E = E.reshape(ex // 2, ey // 2, 2, ez).sum(dim=2)
     E = E[..., 0::2] + E[..., 1::2]
     return E * 0.125
+
+
+class GeometricMultigrid:
+    """V-cycle preconditioner for the masked hex operator, f32 at every
+    level.
+
+    grids: fine-to-coarse Grid hierarchy (length nlvls).
+    KEs:   per-level (8 dof, 8 dof) element matrices (numpy).
+    masks: per-level (nx, ny, nz, dof) 0/1 Dirichlet masks (numpy), or
+           None (a pure Neumann problem: the Helmholtz filter).
+    """
+
+    def __init__(
+        self,
+        grids: Sequence,
+        KEs: Sequence[np.ndarray],
+        masks: Optional[Sequence[np.ndarray]],
+        dof: int,
+        *,
+        device: torch.device,
+        smooth_sweeps: int = 4,
+        cheby_lower: float = 0.06,
+        cheby_upper: float = 1.1,
+        coarse_rtol: float = 1e-8,
+        coarse_maxit: int = 30,
+        precise_dots: bool = True,
+        coarse_op: str = "rediscretize",
+        precond_dtype=None,
+    ):
+        if coarse_op != "rediscretize":
+            raise NotImplementedError(
+                f"coarse_op {coarse_op!r} is not ported yet "
+                "(ROADMAP.md queue 1 item 14)"
+            )
+        if precond_dtype is not None:
+            raise NotImplementedError(
+                "a reduced-precision V-cycle is not ported yet "
+                "(ROADMAP.md queue 1 item 12)"
+            )
+        self.grids = tuple(grids)
+        self.nlvls = len(self.grids)
+        f32 = dict(dtype=torch.float32, device=torch.device(device))
+        self.KEs = [torch.as_tensor(np.asarray(k), **f32) for k in KEs]
+        make = {1: make_helmholtz_apply, 3: make_nodal_hex_apply}[dof]
+        self.level_applies = [
+            make(g.nn, KEs[l]) for l, g in enumerate(self.grids)
+        ]
+        if masks is None:
+            self.masks = self.unmasks = None
+        else:
+            self.masks = [torch.as_tensor(m, **f32) for m in masks]
+            self.unmasks = [1.0 - m for m in self.masks]
+        self.smooth_sweeps = smooth_sweeps
+        self.cheby_lower = cheby_lower
+        self.cheby_upper = cheby_upper
+        self.coarse_rtol = coarse_rtol
+        self.coarse_maxit = coarse_maxit
+        self.precise_dots = precise_dots
+
+    def apply(self, level: int, coef: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+        """A_l v = N (K_l (N v)) + (I - N) v (LinearElasticity.cc:530-538,
+        applied matrix-free at every level); `coef` is the level's
+        prepared element coefficient (`setup`)."""
+        ap = self.level_applies[level]
+        if self.masks is None:
+            return ap.apply_prepared(v.contiguous(), coef)
+        N = self.masks[level]
+        Kv = ap.apply_prepared(N * v, coef)
+        return N * Kv + self.unmasks[level] * v
+
+    def setup(self, scale_fine: torch.Tensor) -> List[dict]:
+        """Per-level {coef, dinv, lmax} from the fine element scale.  lmax
+        is the certain Gershgorin bound; masked rows are identity rows
+        (diagonal 1, ratio 1)."""
+        levels = []
+        E = scale_fine.to(torch.float32)
+        for l, g in enumerate(self.grids):
+            if l > 0:
+                E = coarsen_cell_field(E)
+            d = hex_operator_diagonal(E, self.KEs[l], g.nn)
+            mask = None if self.masks is None else self.masks[l]
+            if mask is not None:
+                d = mask * d + self.unmasks[l]
+            R = hex_operator_absrowsum(E, self.KEs[l], g.nn)
+            levels.append({
+                "coef": self.level_applies[l].prepare_coef(E),
+                "dinv": 1.0 / d,
+                "lmax": gershgorin_lambda_max(R, d, mask),
+            })
+        return levels
+
+    def vcycle(self, levels: List[dict], b: torch.Tensor,
+               level: int = 0) -> torch.Tensor:
+        """One multiplicative V(s,s) cycle; returns z ~= A^-1 b."""
+        lvl = levels[level]
+        A = lambda v: self.apply(level, lvl["coef"], v)  # noqa: E731
+
+        if level == self.nlvls - 1:
+            return pcg(
+                A, b, torch.zeros_like(b),
+                M=lambda r: lvl["dinv"] * r,
+                rtol=self.coarse_rtol,
+                maxiter=self.coarse_maxit,
+                flexible=False,
+                precise_dots=self.precise_dots,
+            ).x
+
+        def smooth(bb, xx, **kw):
+            return chebyshev_smooth(
+                A, bb, xx, lvl["dinv"], lvl["lmax"],
+                degree=self.smooth_sweeps,
+                lower=self.cheby_lower, upper=self.cheby_upper, **kw,
+            )
+
+        # presmooth from zero: skip the A(0) application
+        x = smooth(b, b, x_is_zero=True)
+        r = b - A(x)
+        rc = self._masked(level + 1, restrict(r))
+        ec = self.vcycle(levels, rc, level + 1)
+        x = x + self._masked(level, prolong(ec))
+        return smooth(b, x)
+
+    def _masked(self, level: int, v: torch.Tensor) -> torch.Tensor:
+        return v if self.masks is None else self.masks[level] * v
+
+    def preconditioner(self, levels: List[dict]) -> Callable:
+        return lambda r: self.vcycle(levels, r)
