@@ -26,9 +26,31 @@ Phases, each printing its lines before the next starts:
   9. the 257^3 run of each of those two paths for 2 iterations, held to
      the golden iteration-1 compliance as in phase 6 (the design is
      uniform there and the PDE filter preserves constants);
-then one JSON line of per-kernel results and, last, the JSON status line.
-Any failure raises: the exit code is nonzero and no status line is
-printed.  Nothing falls back to the CPU or to a plain version.
+ 10. the fused driver (-fused 1), 65x33x33, 10 iterations through the CLI
+     entry, held against docs/jax_cpu_history_65x33x33_fused.npz (the JAX
+     package's -fused 1 on CPU), with the launch counts of K1 and K2;
+ 11. the fused nodal path (-fused 1 -operator_impl pallas) against the
+     same history, solver iterations within 1, with K4's launches;
+ 12. the fused -filter 2 path against
+     docs/jax_cpu_history_65x33x33_fused_filter2.npz, with K3's launches;
+ 13. graph = eager: 4 iterations of the fused step with its steady
+     variant captured as CUDA graphs (replayed at iteration 4) against
+     the same stage functions kept eager, equal to 1e-6 relative;
+ 14. the fused 257^3 run, 4 iterations (the last replays the graphs):
+     iteration-1 compliance against the golden, no stalled solve, peak
+     memory, and s/iteration beside phase 6's split driver;
+ 15. a torch.profiler window over one steady iteration of the split and
+     of the fused driver at 65x33x33 and at 257^3: host launch calls,
+     kernels on the device, device-to-host copies, host synchronizations,
+     and the device's idle share; and the runs of K1-K4 the device
+     recorded in each window, which must equal the growth of their launch
+     counts over it.
+A CUDA graph's replay counts the kernel launches it recorded
+(ops/cuda_build.py); phase 15 holds that count to the device's own
+record.  Then one JSON line of per-kernel results, whose
+launch counts are the fused paths' (phases 10-12), and, last, the JSON
+status line.  Any failure raises: the exit code is nonzero and no status
+line is printed.  Nothing falls back to the CPU or to a plain version.
 """
 
 import json
@@ -315,12 +337,15 @@ def phase_path_run(tag, args, history, names, iters_within=None):
     return launches
 
 
+def _size_args(n):
+    return ["-nx", str(n), "-ny", str(n), "-nz", str(n), "-nlvls", "5"]
+
+
 def phase_real_size(tag="6 257^3", args=()):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        h = _run_cli(["-nx", "257", "-ny", "257", "-nz", "257",
-                      "-nlvls", "5", "-maxItr", "2",
+        h = _run_cli([*_size_args(257), "-maxItr", "2",
                       "-output_cadence_vtu", "0", *args], tmp)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -333,6 +358,153 @@ def phase_real_size(tag="6 257^3", args=()):
         raise AssertionError(f"bad history: {h}")
     if d > 1e-3 or h["stalled"].any():
         raise AssertionError("257^3 run off the golden or stalled")
+    return h["time"].tolist()
+
+
+# -- the fused driver (-fused 1) ------------------------------------------- #
+
+def phase_graph_eager():
+    """The fused step replayed from its CUDA graphs against the same stage
+    functions run eagerly, 4 iterations at 65x33x33."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.parallel.fused_step import (
+        make_fused_step,
+    )
+
+    runs = []
+    for graphs in (True, False):
+        step, state = make_fused_step(TopOptConfig(fused=True),
+                                      graphs=graphs)
+        for itr in range(1, 5):
+            step(state, itr)
+        torch.cuda.synchronize()
+        if (step.graphs is not None) != graphs:
+            raise AssertionError("the steady variant was not captured")
+        runs.append((step, state))
+    (step, got), (_, ref) = runs
+    rel = {f: float(torch.max(torch.abs(getattr(got, f) - getattr(ref, f)))
+                    / torch.max(torch.abs(getattr(ref, f))))
+           for f in ("fx", "gx", "ch", "mnd", "x")}
+    its = (int(got.solver_iters), int(ref.solver_iters))
+    log(f"[13 graph=eager] {len(step.graphs)} graphs; max rel diff "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, solver iterations "
+        f"{its[0]} and {its[1]} at iteration 4")
+    if max(rel.values()) > 1e-6 or its[0] != its[1]:
+        raise AssertionError("graph replay differs from the eager step")
+
+
+def _fused_driver(size_args, maxItr):
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.fused_driver import FusedDriver
+
+    return FusedDriver(TopOptConfig.from_args([
+        *size_args, "-fused", "1", "-maxItr", str(maxItr),
+        "-output_cadence_vtu", "0", "-restart", "0"]))
+
+
+def phase_fused_real_size(split_times):
+    """4 fused iterations at 257^3; returns the driver for the profile."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    d = _fused_driver(_size_args(257), 5)
+    h = d.run(4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    d1 = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
+    log(f"[14 fused 257^3] fx {h['fx']}, it.1 rel diff to golden "
+        f"{d1:.3e}, s/iteration {h['time']} (split driver, phase 6: "
+        f"{split_times}), solver iterations {h['iters']}, stalled "
+        f"{h['stalled']}, max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB), graphs {d.step.graphs is not None}")
+    if (len(h["fx"]) != 4 or not np.isfinite(h["fx"]).all() or d1 > 1e-3
+            or any(h["stalled"]) or d.step.graphs is None):
+        raise AssertionError("fused 257^3 run off the golden, stalled or "
+                             "not captured")
+    return d
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
+# each kernel's device function, demangled or mangled (csrc/*.cu)
+_DEVICE_NAMES = {
+    "K1": ("hex_operator_kernel",),
+    "K2": ("quadform_kernel",),
+    "K3": ("nodal_hex_kernel<1>", "nodal_hex_kernelILi1E"),
+    "K4": ("nodal_hex_kernel<3>", "nodal_hex_kernelILi3E"),
+}
+
+
+def _profile(run_once):
+    """Counts of one profiled call: host launch calls (graph launches
+    included), kernels and device-to-host copies on the device, host
+    synchronizations, wall and device-busy seconds, idle share, and the
+    executions of K1-K4 that the device recorded, held equal to the
+    growth of the wrappers' launch counts over the same call (graph
+    replays included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels = _kernel_objects()
+    torch.cuda.synchronize()
+    before = {n: k.launches for n, k in kernels.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.events()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # union of the device intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy *= 1e-6
+    counted = {n: k.launches - before[n] for n, k in kernels.items()}
+    on_device = {n: sum(any(s in e.name for s in names) for e in dev)
+                 for n, names in _DEVICE_NAMES.items()}
+    if counted != on_device or not any(counted.values()):
+        raise AssertionError(f"launch counts {counted} differ from the "
+                             f"kernels the device ran {on_device}")
+    return {
+        "kernel_runs": on_device,
+        "launch_calls": sum(e.name in _LAUNCH_CALLS for e in ev),
+        "graph_launches": sum(e.name == "cudaGraphLaunch" for e in ev),
+        "device_kernels": sum("Memcpy" not in e.name
+                              and "Memset" not in e.name for e in dev),
+        "d2h_copies": sum("DtoH" in e.name for e in dev),
+        "syncs": sum(e.name.endswith("Synchronize") for e in ev),
+        "wall_s": round(wall, 4), "busy_s": round(busy, 4),
+        "idle_share": round(1.0 - busy / wall, 3),
+    }
+
+
+def phase_profiles(fused_257):
+    """One steady iteration of each driver under torch.profiler, at
+    65x33x33 and 257^3: the split driver's iteration 2, the fused
+    driver's iteration 5 (its second replay)."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.driver import Driver
+
+    for size, size_args in (("65x33x33", []), ("257^3", _size_args(257))):
+        split = Driver(TopOptConfig.from_args([
+            *size_args, "-maxItr", "2", "-output_cadence_vtu", "0",
+            "-restart", "0"]))
+        split.run(1)
+        counts = {"split": _profile(lambda: split.run(2))}
+        del split
+        if size_args:
+            fused, fused_257 = fused_257, None
+        else:
+            fused = _fused_driver(size_args, 5)
+            fused.run(4)
+        counts["fused"] = _profile(lambda: fused.run(5))
+        del fused
+        torch.cuda.empty_cache()
+        for k, c in counts.items():
+            log(f"[15 profile] {size} {k}: {json.dumps(c)}")
 
 
 def main() -> int:
@@ -347,16 +519,31 @@ def main() -> int:
     phase_build()
     errs = phase_parity(dev)
     times = phase_kernel_times(dev)
-    launches = phase_default_run()
-    phase_real_size()
-    launches["K3"] = phase_path_run(
-        "7 filter 2", ["-filter", "2"],
-        "jax_cpu_history_65x33x33_filter2.npz", ("K1", "K2", "K3"))["K3"]
-    launches["K4"] = phase_path_run(
-        "8 nodal", ["-operator_impl", "pallas"],
-        "jax_cpu_history_65x33x33.npz", ("K4", "K2"), iters_within=1)["K4"]
+    phase_default_run()
+    split_times = phase_real_size()
+    phase_path_run("7 filter 2", ["-filter", "2"],
+                   "jax_cpu_history_65x33x33_filter2.npz",
+                   ("K1", "K2", "K3"))
+    phase_path_run("8 nodal", ["-operator_impl", "pallas"],
+                   "jax_cpu_history_65x33x33.npz", ("K4", "K2"),
+                   iters_within=1)
     phase_real_size("9 257^3 filter 2", ["-filter", "2"])
     phase_real_size("9 257^3 nodal", ["-operator_impl", "pallas"])
+    # the fused paths: this slice's main path, whose counts the kernel
+    # line reports
+    launches = phase_path_run(
+        "10 fused", ["-fused", "1"], "jax_cpu_history_65x33x33_fused.npz",
+        ("K1", "K2"))
+    launches["K4"] = phase_path_run(
+        "11 fused nodal", ["-fused", "1", "-operator_impl", "pallas"],
+        "jax_cpu_history_65x33x33_fused.npz", ("K4", "K2"),
+        iters_within=1)["K4"]
+    launches["K3"] = phase_path_run(
+        "12 fused filter 2", ["-fused", "1", "-filter", "2"],
+        "jax_cpu_history_65x33x33_fused_filter2.npz",
+        ("K1", "K2", "K3"))["K3"]
+    phase_graph_eager()
+    phase_profiles(phase_fused_real_size(split_times))
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",

@@ -134,3 +134,52 @@ def test_wrappers_refuse_bad_tensors(dev):
         nodal_hex(u.permute(1, 2, 3, 0).contiguous(), E.double(), KE32)
     with pytest.raises(ValueError):
         helmholtz(u[:1].permute(1, 2, 3, 0).contiguous(), E, KE32)
+
+
+# -- the fused step's CUDA graphs ------------------------------------------ #
+
+FUSED = dict(nx=17, ny=9, nz=9, nlvls=2, rmin=0.16, fused=True,
+             output_cadence_vtu=False, restart=False, device="cuda")
+
+
+def test_fused_step_graph_replay_equals_eager(dev):
+    """Iterations 1-3 run eagerly and the steady variant is captured
+    after iteration 3; iterations 4-5 replay it.  The same step kept
+    eager gives the same state to 1e-6 relative."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.parallel.fused_step import (
+        make_fused_step,
+    )
+
+    runs = []
+    for graphs in (True, False):
+        step, state = make_fused_step(TopOptConfig(**FUSED), graphs=graphs)
+        for itr in range(1, 6):
+            step(state, itr)
+        torch.cuda.synchronize()
+        assert (step.graphs is not None) == graphs
+        runs.append(state)
+    got, ref = runs
+    assert int(got.solver_iters) == int(ref.solver_iters)
+    for f in ("x", "xPhys", "L", "U", "fx", "gx", "ch", "mnd"):
+        torch.testing.assert_close(getattr(got, f), getattr(ref, f),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_fused_state_buffers_stay_put(dev, tmp_path):
+    """The graphs read and write the state's tensors: no driver write
+    rebinds one, across the iterations and the beta re-projection of
+    iteration 10 (-projectionFilter 1)."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.fused_driver import FusedDriver
+
+    cfg = TopOptConfig(**FUSED, maxItr=10, projectionFilter=True, beta=1.0,
+                       eta=0.5, workdir=str(tmp_path))
+    d = FusedDriver(cfg)
+    ptrs = [t.data_ptr() for t in d.state]
+    d.run()
+    assert d.step.graphs is not None
+    assert float(d.state.beta) == 2.0
+    assert [t.data_ptr() for t in d.state] == ptrs
+    with pytest.raises(ValueError, match="copy_"):
+        d.step(d.state._replace(x=d.state.x.clone()), 11)

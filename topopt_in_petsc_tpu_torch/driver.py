@@ -230,4 +230,10 @@ class Driver:
 
 
 def run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
+    if cfg.fused:
+        # one step call per iteration over every filter, -filter 2
+        # included (the JAX package runs that on its SPMD engine)
+        from topopt_in_petsc_tpu_torch.fused_driver import FusedDriver
+
+        return FusedDriver(cfg).run(max_iters)
     return Driver(cfg).run(max_iters)

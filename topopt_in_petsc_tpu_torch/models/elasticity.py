@@ -13,11 +13,16 @@ on two paths of the JAX package's `models/elasticity.py`:
 
 On both, the compliance and its sensitivity come from kernel K2
 (ops/quadform.py).
+
+The state solve has two forms: `solve_state`, one eager call (the split
+driver), and `solve_start` then `solve_advance` in segments of predicated
+iterations (the fused step, parallel/fused_step.py), the counterpart of
+the JAX package's `_solve_impl`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +31,14 @@ from topopt_in_petsc_tpu_torch.grid import Grid
 from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
 from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 from topopt_in_petsc_tpu_torch.solvers.blocked_mg import BlockedElasticityMG
-from topopt_in_petsc_tpu_torch.solvers.cg import CGResult, accurate_sum, pcg
+from topopt_in_petsc_tpu_torch.solvers.cg import (
+    CGResult,
+    PCGState,
+    accurate_sum,
+    pcg,
+    pcg_start,
+    pcg_trips,
+)
 from topopt_in_petsc_tpu_torch.solvers.multigrid import GeometricMultigrid
 
 
@@ -90,6 +102,8 @@ class LinearElasticity:
         self.solver = self.mg = None
         if cfg.operator_impl != "pallas":
             self.solver = BlockedElasticityMG(grids, KEs, **mg_args)
+            # the resident load vector
+            self._b = self.solver.ops[0].cantilever_rhs(dtype=torch.float32)
             return
         # nodal path: per-level masks by node subsampling (coarse nodes
         # coincide with fine nodes at even indices)
@@ -118,13 +132,12 @@ class LinearElasticity:
         if self.mg is not None:
             return self._solve_nodal(E, u0)
         op0 = self.solver.ops[0]
-        b = op0.cantilever_rhs(dtype=torch.float32)
         if u0 is None:
-            x0 = torch.zeros_like(b)
+            x0 = torch.zeros_like(self._b)
         else:
             x0 = op0.mask0(op0.to_blocked(u0))
         res = self.solver.solve(
-            E, b, x0, rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit,
+            E, self._b, x0, rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit,
             ksp_type=cfg.ksp_type,
         )
         return CGResult(
@@ -132,6 +145,48 @@ class LinearElasticity:
             iters=res.iters,
             relres=res.relres,
         )
+
+    def solve_start(self, xPhys: torch.Tensor,
+                    u0: torch.Tensor) -> Tuple[list, PCGState]:
+        """The predicated form of `solve_state`: (MG levels, Krylov carry
+        before the first iteration) from the nodal warm start u0.  The
+        carry lives in the solver's layout (`solution` converts)."""
+        E = self.simp(xPhys.to(self.dtype))
+        if self.mg is not None:
+            levels = self.mg.setup(E)
+            return levels, pcg_start(
+                self._nodal_A(levels), self.RHS, u0.contiguous(),
+                self.mg.preconditioner(levels, predicated=True),
+                precise_dots=self.cfg.precise_dots,
+            )
+        op0 = self.solver.ops[0]
+        return self.solver.start(E, self._b, op0.mask0(op0.to_blocked(u0)))
+
+    def solve_advance(self, levels: list, state: PCGState,
+                      n: int) -> PCGState:
+        """n predicated iterations of the state solve."""
+        cfg = self.cfg
+        if self.mg is not None:
+            return pcg_trips(
+                self._nodal_A(levels), state,
+                self.mg.preconditioner(levels, predicated=True), n,
+                rtol=cfg.ksp_rtol,
+                maxiter=cfg.ksp_maxit, flexible=True,
+                precise_dots=cfg.precise_dots,
+            )
+        return self.solver.advance(
+            levels, state, n, rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit,
+            ksp_type=cfg.ksp_type,
+        )
+
+    def solution(self, x: torch.Tensor) -> torch.Tensor:
+        """The carry's x as the nodal (nx, ny, nz, 3) field."""
+        if self.mg is not None:
+            return x
+        return self.solver.ops[0].from_blocked(x, self.dtype)
+
+    def _nodal_A(self, levels):
+        return lambda v: self.mg.apply(0, levels[0]["coef"], v)
 
     def _solve_nodal(self, E: torch.Tensor,
                      u0: Optional[torch.Tensor]) -> CGResult:
@@ -141,8 +196,8 @@ class LinearElasticity:
         levels = self.mg.setup(E)
         x0 = torch.zeros_like(self.RHS) if u0 is None else u0.contiguous()
         return pcg(
-            lambda v: self.mg.apply(0, levels[0]["coef"], v),
-            self.RHS, x0, self.mg.preconditioner(levels),
+            self._nodal_A(levels), self.RHS, x0,
+            self.mg.preconditioner(levels),
             rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit, flexible=True,
             precise_dots=cfg.precise_dots,
         )

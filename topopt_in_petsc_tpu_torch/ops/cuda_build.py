@@ -114,18 +114,26 @@ class _Library:
 
 LIBRARY = _Library()
 
+# every entry point, in the order the wrappers' modules created them
+KERNELS: list = []
+
 
 class CudaKernel:
     """One C entry point of the library, with its launch count.
 
-    `launches` grows by one for every launch and for nothing else; the
-    wrappers call the plain PyTorch version for CPU tensors, which does
-    not count.
+    `launches` grows by one for every launch that runs and for nothing
+    else; the wrappers call the plain PyTorch version for CPU tensors,
+    which does not count.  A call while the stream is being captured into
+    a CUDA graph records a launch without running it: it counts in
+    `captured`, and the graph adds what it recorded to `launches` at each
+    replay (parallel/fused_step.py).
     """
 
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
+        self.captured = 0
+        KERNELS.append(self)
 
     def __call__(self, *args) -> None:
         lib = LIBRARY.get()
@@ -134,7 +142,10 @@ class CudaKernel:
         if err != 0:
             msg = lib.topopt_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} launch failed: {msg}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:

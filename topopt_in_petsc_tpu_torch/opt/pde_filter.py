@@ -14,6 +14,10 @@ design, then dfdx, then each dgdx row, in the driver's order.
 
 The filter map is self-adjoint: Gradients() == FilterProject()
 (PDEFilter.cc:218).
+
+A solve runs either as one eager `pcg` call (the split driver) or in the
+predicated form, `start`, `advance` in segments and `finish` (the fused
+step); the warm start is one buffer, updated in place.
 """
 
 from __future__ import annotations
@@ -34,12 +38,19 @@ from topopt_in_petsc_tpu_torch.opt.filters import (
     smooth_projection,
     smooth_projection_chainrule,
 )
-from topopt_in_petsc_tpu_torch.solvers.cg import pcg
+from topopt_in_petsc_tpu_torch.solvers.cg import (
+    PCGState,
+    pcg,
+    pcg_active,
+    pcg_start,
+    pcg_trips,
+)
 from topopt_in_petsc_tpu_torch.solvers.multigrid import GeometricMultigrid
 
 
 class PDEFilter:
-    def __init__(self, cfg, grid, *, device: torch.device):
+    def __init__(self, cfg, grid, *, device: torch.device,
+                 smoke: bool = True):
         self.cfg = cfg
         self.grid = grid
         self.device = torch.device(device)
@@ -71,6 +82,10 @@ class PDEFilter:
         self._u = torch.zeros((nx, ny, nz, 1), dtype=self.dtype,
                               device=self.device)
 
+        if not smoke:
+            # the JAX package's single-program filter (its SPMD engine,
+            # which `-fused 1 -filter 2` runs) has no smoke solve
+            return
         # constructor smoke test, like PDEFilter.cc:175-187; drawn on the
         # CPU so every device gets the same numbers
         gen = torch.Generator().manual_seed(0)
@@ -82,9 +97,9 @@ class PDEFilter:
         """Replace the warm start by a nodal (nx, ny, nz, 1) field, e.g.
         the JAX package's filter state `PDEFilter._u`, to carry one run's
         solve sequence into another."""
-        self._u = torch.tensor(
-            np.asarray(u), dtype=self.dtype, device=self.device
-        ).reshape(self._u.shape)
+        self._u.copy_(torch.as_tensor(
+            np.asarray(u), dtype=self.dtype
+        ).reshape(self._u.shape))
 
     # -- T and T^T ------------------------------------------------------ #
 
@@ -101,14 +116,14 @@ class PDEFilter:
 
     # -- solve ----------------------------------------------------------- #
 
+    def _A(self, v):
+        return self.mg.apply(0, self._levels[0]["coef"], v)
+
     def _solve(self, x, u0):
         cfg = self.cfg
-        levels = self._levels
         res = pcg(
-            lambda v: self.mg.apply(0, levels[0]["coef"], v),
-            self._T_apply(x),
-            u0,
-            self.mg.preconditioner(levels),
+            self._A, self._T_apply(x), u0,
+            self.mg.preconditioner(self._levels),
             rtol=cfg.pde_rtol,
             maxiter=cfg.pde_maxit,
             flexible=True,
@@ -119,8 +134,37 @@ class PDEFilter:
     def _project_core_host(self, x):
         """One filter solve from the kept warm start, which it replaces."""
         u, xt, iters, relres = self._solve(x.to(self.dtype), self._u)
-        self._u = u
+        self._u.copy_(u)
         return xt, iters, float(relres)
+
+    # -- the predicated form (parallel/fused_step.py) -------------------- #
+
+    def start(self, x: torch.Tensor) -> PCGState:
+        """The Krylov carry of the solve for design-shaped x, from the kept
+        warm start."""
+        return pcg_start(
+            self._A, self._T_apply(x.to(self.dtype)), self._u,
+            self.mg.preconditioner(self._levels, predicated=True),
+            precise_dots=self.cfg.precise_dots,
+        )
+
+    def advance(self, state: PCGState, n: int) -> PCGState:
+        cfg = self.cfg
+        return pcg_trips(
+            self._A, state,
+            self.mg.preconditioner(self._levels, predicated=True), n,
+            rtol=cfg.pde_rtol, maxiter=cfg.pde_maxit, flexible=True,
+            precise_dots=cfg.precise_dots,
+        )
+
+    def active(self, state: PCGState) -> torch.Tensor:
+        return pcg_active(state, rtol=self.cfg.pde_rtol,
+                          maxiter=self.cfg.pde_maxit)
+
+    def finish(self, state: PCGState) -> torch.Tensor:
+        """Keep the solution as the next warm start; returns T^T u."""
+        self._u.copy_(state.x)
+        return self._Tt_apply(state.x)
 
     # -- public API of filter type 2 ------------------------------------- #
 

@@ -11,11 +11,17 @@ x = 0 clamped wall, so Dirichlet masks are index predicates.
 
 Each level has its own rediscretized element matrix KE, which K1 takes
 per call.
+
+The outer solve is either one eager `pcg` call (`solve`, the split
+driver) or the predicated form, `start` and then `advance` in segments
+(the fused step).  The V-cycle's coarse CG follows its outer solve: eager
+under `solve`, `coarse_maxit` predicated trips under `start`/`advance`,
+so that their V-cycles never read the device from the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +31,14 @@ from topopt_in_petsc_tpu_torch.ops.hex_operator import (
     hex_operator_absrowsum,
     hex_operator_diagonal,
 )
-from topopt_in_petsc_tpu_torch.solvers.cg import CGResult, pcg
+from topopt_in_petsc_tpu_torch.solvers.cg import (
+    CGResult,
+    PCGState,
+    pcg,
+    pcg_start,
+    pcg_trips,
+    pcg_x,
+)
 from topopt_in_petsc_tpu_torch.solvers.chebyshev import chebyshev_smooth
 from topopt_in_petsc_tpu_torch.solvers.multigrid import (
     coarsen_cell_field,
@@ -105,21 +118,19 @@ class BlockedElasticityMG:
 
     # -- V-cycle -------------------------------------------------------- #
 
-    def vcycle(self, levels: List[dict], b: torch.Tensor,
-               l: int = 0) -> torch.Tensor:
+    def vcycle(self, levels: List[dict], b: torch.Tensor, l: int = 0, *,
+               predicated: bool = False) -> torch.Tensor:
         lvl = levels[l]
         op = self.ops[l]
         A = self._A(l, lvl["eb"])
 
         if l == self.nlvls - 1:
-            return pcg(
-                A, b, torch.zeros_like(b),
-                M=lambda r: lvl["dinv"] * r,
-                rtol=self.coarse_rtol,
-                maxiter=self.coarse_maxit,
-                flexible=False,
+            return pcg_x(
+                A, b, torch.zeros_like(b), lambda r: lvl["dinv"] * r,
+                predicated=predicated, rtol=self.coarse_rtol,
+                maxiter=self.coarse_maxit, flexible=False,
                 dot=self._dot(l),
-            ).x
+            )
 
         def smooth(bb, xx, **kw):
             return chebyshev_smooth(
@@ -132,7 +143,7 @@ class BlockedElasticityMG:
         r = b - A(x)
         opc = self.ops[l + 1]
         rc = opc.mask0(restrict(r, _SPATIAL))
-        ec = self.vcycle(levels, rc, l + 1)
+        ec = self.vcycle(levels, rc, l + 1, predicated=predicated)
         x = x + op.mask0(prolong(ec, _SPATIAL))
         return smooth(b, x)
 
@@ -157,4 +168,26 @@ class BlockedElasticityMG:
             lambda r: self.vcycle(levels, r),
             rtol=rtol, maxiter=maxiter,
             flexible=(ksp_type != "cg"), dot=self._dot(0),
+        )
+
+    def start(self, E_fine: torch.Tensor, b_blk: torch.Tensor,
+              x0_blk: torch.Tensor) -> Tuple[List[dict], PCGState]:
+        """The MG setup and the Krylov carry of `solve` before its first
+        iteration."""
+        levels = self.setup(E_fine)
+        return levels, pcg_start(
+            self._A(0, levels[0]["eb"]), b_blk, x0_blk,
+            lambda r: self.vcycle(levels, r, predicated=True),
+            dot=self._dot(0),
+        )
+
+    def advance(self, levels: List[dict], state: PCGState, n: int, *,
+                rtol: float = 1e-5, maxiter: int = 200,
+                ksp_type: str = "fcg") -> PCGState:
+        """n predicated iterations of `solve` from `state`."""
+        return pcg_trips(
+            self._A(0, levels[0]["eb"]), state,
+            lambda r: self.vcycle(levels, r, predicated=True), n,
+            rtol=rtol, maxiter=maxiter, flexible=(ksp_type != "cg"),
+            dot=self._dot(0),
         )

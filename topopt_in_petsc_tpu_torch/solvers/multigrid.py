@@ -33,7 +33,7 @@ from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
     make_helmholtz_apply,
     make_nodal_hex_apply,
 )
-from topopt_in_petsc_tpu_torch.solvers.cg import pcg
+from topopt_in_petsc_tpu_torch.solvers.cg import pcg_x
 from topopt_in_petsc_tpu_torch.solvers.chebyshev import (
     chebyshev_smooth,
     gershgorin_lambda_max,
@@ -184,20 +184,20 @@ class GeometricMultigrid:
         return levels
 
     def vcycle(self, levels: List[dict], b: torch.Tensor,
-               level: int = 0) -> torch.Tensor:
-        """One multiplicative V(s,s) cycle; returns z ~= A^-1 b."""
+               level: int = 0, *, predicated: bool = False) -> torch.Tensor:
+        """One multiplicative V(s,s) cycle; returns z ~= A^-1 b.  With
+        `predicated` the coarse CG runs all its `coarse_maxit` trips and
+        reads nothing back from the device."""
         lvl = levels[level]
         A = lambda v: self.apply(level, lvl["coef"], v)  # noqa: E731
 
         if level == self.nlvls - 1:
-            return pcg(
-                A, b, torch.zeros_like(b),
-                M=lambda r: lvl["dinv"] * r,
-                rtol=self.coarse_rtol,
-                maxiter=self.coarse_maxit,
-                flexible=False,
+            return pcg_x(
+                A, b, torch.zeros_like(b), lambda r: lvl["dinv"] * r,
+                predicated=predicated, rtol=self.coarse_rtol,
+                maxiter=self.coarse_maxit, flexible=False,
                 precise_dots=self.precise_dots,
-            ).x
+            )
 
         def smooth(bb, xx, **kw):
             return chebyshev_smooth(
@@ -210,12 +210,15 @@ class GeometricMultigrid:
         x = smooth(b, b, x_is_zero=True)
         r = b - A(x)
         rc = self._masked(level + 1, restrict(r))
-        ec = self.vcycle(levels, rc, level + 1)
+        ec = self.vcycle(levels, rc, level + 1, predicated=predicated)
         x = x + self._masked(level, prolong(ec))
         return smooth(b, x)
 
     def _masked(self, level: int, v: torch.Tensor) -> torch.Tensor:
         return v if self.masks is None else self.masks[level] * v
 
-    def preconditioner(self, levels: List[dict]) -> Callable:
-        return lambda r: self.vcycle(levels, r)
+    def preconditioner(self, levels: List[dict], *,
+                       predicated: bool = False) -> Callable:
+        """The V-cycle as M; `predicated` for the predicated solves of the
+        fused step, eager for the split driver's."""
+        return lambda r: self.vcycle(levels, r, predicated=predicated)
