@@ -7,10 +7,18 @@ Phases, each printing its lines before the next starts:
      and power limit;
   2. build: the hand-written kernels K1-K4 with nvcc, and its time;
   3. kernel parity: each kernel against its plain PyTorch version on the
-     card at 9x7x5, 65x33x33 and 13x11x7 nodes (rtol 2e-5, atol 1e-5 of
-     max|ref|, the JAX package's bar for its Pallas kernels);
-  4. kernel times at 257^3 nodes against the plain versions (CUDA events,
-     median of 15 runs each, in turns);
+     card at 9x7x5, 65x33x33, 13x11x7, the tile edges 9x9x33 and
+     13x11x37, and the coarse levels 17^3 and 33^3 (rtol 2e-5, atol 1e-5
+     of max|ref|, the JAX package's bar for its Pallas kernels); two
+     launches of K1 and of K2 bitwise equal (no atomics); and, for a KE
+     without the brick's reflection symmetry, the 576-FMA products;
+  4. kernel times at 257^3 nodes against the plain versions (the kernel
+     as a CUDA graph of one launch replays it, the plain version around
+     its call; CUDA events, median of 15), each kernel's output first
+     held to the plain version's at the same bar; K1 at every level of
+     the 257^3 hierarchy and at 65x33x33, held to the plain version and
+     then timed as a graph of back-to-back launches replays it, beside
+     its bound and its share, which must not exceed 100%;
   5. the default 65x33x33 run through the CLI entry for 10 iterations,
      held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
      CPU), with the launch counts of K1 and K2 over that run;
@@ -44,13 +52,16 @@ Phases, each printing its lines before the next starts:
      kernels on the device, device-to-host copies, host synchronizations,
      and the device's idle share; and the runs of K1-K4 the device
      recorded in each window, which must equal the growth of their launch
-     counts over it.
+     counts over it; in the fused 257^3 window, K1's runs and device time
+     per multigrid level, told apart by the launch grid.
 A CUDA graph's replay counts the kernel launches it recorded
 (ops/cuda_build.py); phase 15 holds that count to the device's own
 record.  Then one JSON line of per-kernel results, whose
-launch counts are the fused paths' (phases 10-12), and, last, the JSON
-status line.  Any failure raises: the exit code is nonzero and no status
-line is printed.  Nothing falls back to the CPU or to a plain version.
+launch counts are the fused paths' (phases 10-12) and whose bounds are
+topopt_in_petsc_tpu_torch/ops/roofline.py's for phase 4's inputs, and,
+last, the JSON status line.  Any failure raises: the exit code is
+nonzero and no status line is printed.  Nothing falls back to the CPU or
+to a plain version.
 """
 
 import json
@@ -65,7 +76,11 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7))
+PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7), (9, 9, 33),
+                 (13, 11, 37), (17, 17, 17), (33, 33, 33))
+# the bitwise repeats at these shapes (tile edges on every axis)
+REPEAT_SHAPES = ((13, 11, 37), (65, 33, 33))
+LEVELS_257 = ((257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3)
 RTOL, ATOL_REL = 2e-5, 1e-5
 # history bars against the JAX package on CPU: fx relative, gx and ch
 # absolute (gx[0] passes through 0 at iteration 1)
@@ -171,13 +186,13 @@ def _plain_k2(u, KE):
     )
 
 
-def _compare(name, got, ref):
+def _compare(name, got, ref, phase="3 parity"):
     err = float(torch.max(torch.abs(got - ref)))
     scale = float(torch.max(torch.abs(ref)))
     ok = bool(torch.all(
         torch.abs(got - ref) <= ATOL_REL * scale + RTOL * torch.abs(ref)
     ))
-    log(f"[3 parity] {name}: max|err| {err:.3e}, max|ref| {scale:.3e}, "
+    log(f"[{phase}] {name}: max|err| {err:.3e}, max|ref| {scale:.3e}, "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
@@ -204,7 +219,35 @@ def phase_parity(dev):
             errs[name] = max(errs.get(name, 0.0), _compare(
                 f"{name} {nn}", wrapper(un, En, K), _plain_nodal(un, En, K)))
     torch.cuda.synchronize()
+    _parity_forms(dev)
     return errs
+
+
+def _parity_forms(dev):
+    """Two launches of K1 and of K2 bitwise equal, and both kernels on a
+    KE without the reflection symmetry."""
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
+    from topopt_in_petsc_tpu_torch.ops.quadform import quadform
+
+    for nn in REPEAT_SHAPES:
+        KE, vb, E = _case(nn, 20, dev)
+        u = vb.permute(1, 2, 3, 0).contiguous()
+        same = {
+            "K1": torch.equal(hex_operator(vb, E, KE, True),
+                              hex_operator(vb, E, KE, True)),
+            "K2": torch.equal(quadform(u, KE), quadform(u, KE)),
+        }
+        log(f"[3 parity] {nn} two launches bitwise equal: {same}")
+        if not all(same.values()):
+            raise AssertionError("a kernel is not deterministic")
+    # a KE that is no brick's: the kernels take their 576-FMA products
+    A = np.random.default_rng(3).normal(size=(24, 24))
+    KEn = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                               dtype=np.float32)
+    _compare(f"K1 {nn} KE without the symmetry",
+             hex_operator(vb, E, KEn, True), _plain_k1(vb, E, KEn, True))
+    _compare(f"K2 {nn} KE without the symmetry", quadform(u, KEn),
+             _plain_k2(u, KEn))
 
 
 def _median_ms(fns, reps=15):
@@ -225,28 +268,79 @@ def _median_ms(fns, reps=15):
     return [statistics.median(t) for t in times]
 
 
-def phase_kernel_times(dev):
+def _graph_ms(fn, n):
+    """Device ms per call of fn from a CUDA graph of n calls."""
+    from topopt_in_petsc_tpu_torch.ops.roofline import graph_ms
+
+    return graph_ms([fn], n)[0]
+
+
+def _share(name, nn, ms):
+    """(bound ms, what sets it, share of the bound) of `name` on an `nn`
+    grid run in `ms`; a share above 1 means the bound is no bound."""
+    from topopt_in_petsc_tpu_torch.ops.roofline import bound_ms
+
+    b, by = bound_ms(name, nn)
+    if b > ms:
+        raise AssertionError(f"{name} {nn}: {ms} ms beats its bound {b} ms")
+    return b, by, b / ms
+
+
+def _level_times(dev, errs):
+    """K1 at every level of the 257^3 hierarchy and at 65x33x33, held to
+    the plain version, then timed as a graph of back-to-back launches
+    replays it (the fused step's form), beside its bound."""
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
+    from topopt_in_petsc_tpu_torch.ops.roofline import work
+
+    for nn in (*LEVELS_257, (65, 33, 33)):
+        KE, vb, E = _case(nn, 30, dev)
+        errs["K1"] = max(errs["K1"], _compare(
+            f"K1 {nn}", hex_operator(vb, E, KE, True),
+            _plain_k1(vb, E, KE, True), "4 times"))
+        torch.cuda.empty_cache()
+        n = max(1, min(200, int(5e8 // work("K1", nn)[0])))
+        ms = _graph_ms(lambda: hex_operator(vb, E, KE, True), n)
+        b, by, share = _share("K1", nn, ms)
+        log(f"[4 times] K1 {'x'.join(map(str, nn))}: {ms:.5f} ms per "
+            f"launch (graph of {n}), bound {b:.5f} ms ({by}), "
+            f"{100 * share:.1f}% of the bound")
+        del vb, E
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_times(dev, errs):
+    """Times at 257^3 (kernel, plain), after holding each kernel's output
+    to the plain version's on the same inputs; `errs` grows to the
+    largest error seen."""
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
     from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 
     nn = (257, 257, 257)
     KE, vb, E = _case(nn, 7, dev)
-    k1, p1 = _median_ms([
-        lambda: hex_operator(vb, E, KE, True),
-        lambda: _plain_k1(vb, E, KE, True),
-    ])
+    errs["K1"] = max(errs["K1"], _compare(
+        f"K1 {nn}", hex_operator(vb, E, KE, True),
+        _plain_k1(vb, E, KE, True), "4 times"))
+    k1 = _graph_ms(lambda: hex_operator(vb, E, KE, True), 1)
+    p1 = _median_ms([lambda: _plain_k1(vb, E, KE, True)])[0]
     u = vb.permute(1, 2, 3, 0).contiguous()
-    k2, p2 = _median_ms([lambda: quadform(u, KE), lambda: _plain_k2(u, KE)])
+    errs["K2"] = max(errs["K2"], _compare(
+        f"K2 {nn}", quadform(u, KE), _plain_k2(u, KE), "4 times"))
+    k2 = _graph_ms(lambda: quadform(u, KE), 1)
+    p2 = _median_ms([lambda: _plain_k2(u, KE)])[0]
     log(f"[4 times] 257^3 K1 hex_operator {k1:.4f} ms, plain {p1:.4f} ms")
     log(f"[4 times] 257^3 K2 quadform {k2:.4f} ms, plain {p2:.4f} ms")
     del vb, E, u
     torch.cuda.empty_cache()
     times = {"K1": (k1, p1), "K2": (k2, p2)}
+    _level_times(dev, errs)
     for name, (dof, wrapper) in _nodal_wrappers().items():
         K, un, En = _nodal_case(nn, 8, dev, dof)
-        times[name] = tuple(_median_ms([
-            lambda: wrapper(un, En, K), lambda: _plain_nodal(un, En, K),
-        ]))
+        errs[name] = max(errs[name], _compare(
+            f"{name} {nn}", wrapper(un, En, K), _plain_nodal(un, En, K),
+            "4 times"))
+        times[name] = (_graph_ms(lambda: wrapper(un, En, K), 1),
+                       _median_ms([lambda: _plain_nodal(un, En, K)])[0])
         log(f"[4 times] 257^3 {name} {wrapper.__name__} "
             f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
         del un, En
@@ -423,6 +517,16 @@ def phase_fused_real_size(split_times):
     return d
 
 
+def _bound(name, ms):
+    """The kernels line's bound of `name` at phase 4's 257^3 inputs, run
+    in `ms`.  No single PyTorch call computes any of K1-K4, so no library
+    time: in K1 and K4 E varies per element, which no convolution
+    expresses; K2's form is quadratic in u, where a convolution is
+    linear; a convolution gives K3's interior rows only."""
+    b, by, _ = _share(name, (257,) * 3, ms)
+    return {"bound_ms": b, "bound_by": by, "library_ms": None}
+
+
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx", "cudaGraphLaunch")
 # each kernel's device function, demangled or mangled (csrc/*.cu)
@@ -434,13 +538,37 @@ _DEVICE_NAMES = {
 }
 
 
-def _profile(run_once):
+def _k1_by_level(prof, levels):
+    """K1's runs and device ms in a profile, grouped by launch grid and
+    named by the level of `levels` that launches with that grid."""
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator_grid
+
+    names = {hex_operator_grid(nn): "x".join(map(str, nn)) for nn in levels}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    by = {}
+    for e in events:
+        if (e.get("cat") != "kernel"
+                or "hex_operator_kernel" not in e.get("name", "")):
+            continue
+        grid = tuple(e.get("args", {}).get("grid", ()))
+        key = names.get(grid, f"grid {list(grid)}")
+        runs, us = by.get(key, (0, 0.0))
+        by[key] = (runs + 1, us + float(e.get("dur", 0.0)))
+    return {k: {"runs": r, "device_ms": round(us / 1e3, 4)}
+            for k, (r, us) in by.items()}
+
+
+def _profile(run_once, k1_levels=()):
     """Counts of one profiled call: host launch calls (graph launches
     included), kernels and device-to-host copies on the device, host
     synchronizations, wall and device-busy seconds, idle share, and the
     executions of K1-K4 that the device recorded, held equal to the
     growth of the wrappers' launch counts over the same call (graph
-    replays included)."""
+    replays included); with `k1_levels`, K1's runs and time per level."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,7 +596,9 @@ def _profile(run_once):
     if counted != on_device or not any(counted.values()):
         raise AssertionError(f"launch counts {counted} differ from the "
                              f"kernels the device ran {on_device}")
+    levels = {"k1_by_level": _k1_by_level(prof, k1_levels)} if k1_levels else {}
     return {
+        **levels,
         "kernel_runs": on_device,
         "launch_calls": sum(e.name in _LAUNCH_CALLS for e in ev),
         "graph_launches": sum(e.name == "cudaGraphLaunch" for e in ev),
@@ -500,7 +630,8 @@ def phase_profiles(fused_257):
         else:
             fused = _fused_driver(size_args, 5)
             fused.run(4)
-        counts["fused"] = _profile(lambda: fused.run(5))
+        counts["fused"] = _profile(lambda: fused.run(5),
+                                   LEVELS_257 if size_args else ())
         del fused
         torch.cuda.empty_cache()
         for k, c in counts.items():
@@ -518,7 +649,7 @@ def main() -> int:
     phase_environment()
     phase_build()
     errs = phase_parity(dev)
-    times = phase_kernel_times(dev)
+    times = phase_kernel_times(dev, errs)
     phase_default_run()
     split_times = phase_real_size()
     phase_path_run("7 filter 2", ["-filter", "2"],
@@ -550,22 +681,26 @@ def main() -> int:
          "source": src + "hex_operator.cu",
          "replaces": "topopt_in_petsc_tpu/ops/blocked_hex.py:65",
          "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
+         "ms": times["K1"][0], "plain_ms": times["K1"][1],
+         **_bound("K1", times["K1"][0])},
         {"name": "quadform (K2)", "route": "cuda",
          "source": src + "quadform.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:274",
          "launches": launches["K2"], "max_abs_err": errs["K2"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+         "ms": times["K2"][0], "plain_ms": times["K2"][1],
+         **_bound("K2", times["K2"][0])},
         {"name": "helmholtz (K3)", "route": "cuda",
          "source": src + "nodal_hex.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:416",
          "launches": launches["K3"], "max_abs_err": errs["K3"],
-         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
+         "ms": times["K3"][0], "plain_ms": times["K3"][1],
+         **_bound("K3", times["K3"][0])},
         {"name": "nodal_hex (K4)", "route": "cuda",
          "source": src + "nodal_hex.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:59",
          "launches": launches["K4"], "max_abs_err": errs["K4"],
-         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+         "ms": times["K4"][0], "plain_ms": times["K4"][1],
+         **_bound("K4", times["K4"][0])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

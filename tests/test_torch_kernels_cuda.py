@@ -39,7 +39,11 @@ torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(9, 7, 5), (13, 11, 7), (9, 5, 5), (17, 17, 17), (33, 17, 17)]
+# small shapes, the edges of K1's 6 x 33 node tile in y-z (13x11x37 a
+# multiple of it on neither axis, 9x9x33 and 5x17x65 whole tiles in z),
+# and the 17^3 and 33^3 coarse levels of the 257^3 hierarchy
+SHAPES = [(9, 7, 5), (13, 11, 7), (9, 5, 5), (17, 17, 17), (33, 17, 17),
+          (9, 9, 33), (5, 17, 65), (13, 11, 37), (33, 33, 33)]
 
 
 @pytest.fixture
@@ -88,6 +92,37 @@ def test_k2_matches_plain(dev, nn):
     assert QUADFORM.launches == before + 1
     KEt = torch.as_tensor(KE, dtype=torch.float32, device=dev)
     _close(got, element_quadratic_form(un, KEt))
+
+
+def _plain_k1(u, E, KE, mask_x0):
+    KEt = torch.as_tensor(KE, dtype=torch.float32, device=u.device)
+    ref = apply_hex_operator(u.permute(1, 2, 3, 0), E, KEt)
+    ref = ref.permute(3, 0, 1, 2).contiguous()
+    return mask0(ref) if mask_x0 else ref
+
+
+def test_ke_without_reflection_symmetry(dev):
+    """A KE that is no brick's takes the 576-FMA products on its own."""
+    KE, u, E = _case((13, 11, 37), dev)
+    A = np.random.default_rng(3).normal(size=(24, 24))
+    KEn = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                               dtype=np.float32)
+    _close(hex_operator(u, E, KEn, True), _plain_k1(u, E, KEn, True))
+    un = u.permute(1, 2, 3, 0).contiguous()
+    _close(quadform(un, KEn),
+           element_quadratic_form(un, torch.as_tensor(KEn, device=dev)))
+
+
+@pytest.mark.parametrize("nn", [(13, 11, 37), (65, 33, 33)])
+def test_k1_k2_repeat_bitwise(dev, nn):
+    """No atomics in the node or element sums: two launches give the same
+    bits (the fused step's graph = eager check relies on it)."""
+    KE, u, E = _case(nn, dev)
+    for mask_x0 in (False, True):
+        assert torch.equal(hex_operator(u, E, KE, mask_x0),
+                           hex_operator(u, E, KE, mask_x0))
+    un = u.permute(1, 2, 3, 0).contiguous()
+    assert torch.equal(quadform(un, KE), quadform(un, KE))
 
 
 # kernel, its wrapper, dof, element matrix of a grid

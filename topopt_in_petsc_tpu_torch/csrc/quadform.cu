@@ -1,38 +1,42 @@
-// K2: per-element quadratic form  q[e] = u_e^T KE u_e  (dof = 3, f32).
+// K2: per-element quadratic form  q[e] = u_e . (u_e @ KE)  (dof = 3, f32).
 //
 // Replaces the TPU kernel topopt_in_petsc_tpu/ops/pallas_hex.py::_qf_kernel
 // (built by make_pallas_quadform).  Plain PyTorch version:
 // ops/hex_operator.py::element_quadratic_form.
 //
 // Layout: u is the nodal (nx, ny, nz, 3) field, q the element field
-// (nx-1, ny-1, nz-1), both contiguous with the last axis fastest.  One
-// thread per element gathers its 24 dofs, forms w = KE u_e and q = u_e . w.
+// (nx-1, ny-1, nz-1), both contiguous with the last axis fastest.
 //
-// What bounds it on an H100: 576 f32 FMAs per element against ~16 bytes of
-// compulsory traffic (one nodal triple read, one value written), so the
-// FMA pipes set the floor (about 0.3 ms at 256^3 elements); the 8-corner
-// gather reads each node 8 times, which L1/L2 serve since neighbouring
-// threads read neighbouring nodes.  KE is a __grid_constant__ kernel
-// parameter with compile-time offsets (constant bank, no device loads),
-// and the 24 gathered values stay in registers.  It runs once per
-// optimization iteration (objective and sensitivity share its output),
-// against the solve's hundreds of K1 launches, so it is kept simple.
+// What bounds it on an H100, at 257^3 nodes: 271 MB of compulsory
+// traffic (u read, q written), 0.081 ms at 3.35 TB/s.  The operations
+// are fewer: the reflection form below comes to 4.0 GFLOP, 0.060 ms at
+// the 67 TFLOP/s f32 peak (600 FMAs per element would be 20.1 GFLOP,
+// 0.30 ms; ops/roofline.py).
+//
+// One thread per element gathers its 24 dofs through L1 and forms q by
+// the brick's reflection blocks (hex_tile.cuh: u_e . (u_e @ KE) =
+// sum_k V_k . Q_k V_k, a Walsh-Hadamard transform over the 8 corners, 72
+// adds + 96 FMAs in place of 600 FMAs) when KE has the symmetry, which
+// every KE of this package has, else by the 600-FMA product.  A
+// shared-memory tile form on hex_tile.cuh (staged node planes) measured
+// slower with the reflection product (PERF.md) and was not kept: K2 runs
+// once per iteration, each element's dofs feed that element alone, and
+// L1 serves the 8-fold node reuse as well as the staging did.
+//
+// No atomics: two launches give bitwise-equal output.
 
 #include <cuda_runtime.h>
 
+#include "hex_tile.cuh"
+
 namespace {
 
-struct KE24q {
-  float v[576];  // row-major (24, 24)
-};
+using namespace hex_tile;
 
-__host__ __device__ constexpr int cx(int a) { return ((a + 1) >> 1) & 1; }
-__host__ __device__ constexpr int cy(int a) { return (a >> 1) & 1; }
-__host__ __device__ constexpr int cz(int a) { return a >> 2; }
-
+template <bool kSym>
 __global__ void __launch_bounds__(256)
 quadform_kernel(const float* __restrict__ u, float* __restrict__ q,
-                const __grid_constant__ KE24q ke, int nx, int ny, int nz) {
+                const __grid_constant__ KEParams ke, int nx, int ny, int nz) {
   const int ex = nx - 1, ey = ny - 1, ez = nz - 1;
   const int nelem = ex * ey * ez;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -44,20 +48,12 @@ quadform_kernel(const float* __restrict__ u, float* __restrict__ q,
   float ue[24];
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
-    const int node = ((i + cx(a)) * ny + (j + cy(a))) * nz + k + cz(a);
+    const int node = ((i + ox(a)) * ny + (j + oy(a))) * nz + k + oz(a);
     ue[3 * a + 0] = __ldg(u + 3 * node + 0);
     ue[3 * a + 1] = __ldg(u + 3 * node + 1);
     ue[3 * a + 2] = __ldg(u + 3 * node + 2);
   }
-  float acc = 0.f;
-#pragma unroll
-  for (int r = 0; r < 24; ++r) {
-    float w = 0.f;
-#pragma unroll
-    for (int c = 0; c < 24; ++c) w = fmaf(ke.v[r * 24 + c], ue[c], w);
-    acc = fmaf(ue[r], w, acc);
-  }
-  q[e] = acc;
+  q[e] = element_quadform<kSym>(ue, ke);
 }
 
 }  // namespace
@@ -69,16 +65,18 @@ extern "C" {
 // allocates nothing, returns cudaGetLastError().
 int quadform_f32(const void* u, void* q, const void* ke_host, int nx, int ny,
                  int nz, void* stream) {
-  KE24q ke;
-  const float* src = static_cast<const float*>(ke_host);
-  for (int i = 0; i < 576; ++i) ke.v[i] = src[i];
-  const int nelem = (nx - 1) * (ny - 1) * (nz - 1);
-  if (nelem > 0) {
-    const int block = 256;
-    const int grid = (nelem + block - 1) / block;
-    quadform_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(u), static_cast<float*>(q), ke, nx, ny, nz);
-  }
+  if (nx < 2 || ny < 2 || nz < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  KEParams ke;
+  const bool sym = element_params(static_cast<const float*>(ke_host), &ke);
+  const int grid = ((nx - 1) * (ny - 1) * (nz - 1) + 255) / 256;
+  const auto* pu = static_cast<const float*>(u);
+  auto* pq = static_cast<float*>(q);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (sym)
+    quadform_kernel<true><<<grid, 256, 0, st>>>(pu, pq, ke, nx, ny, nz);
+  else
+    quadform_kernel<false><<<grid, 256, 0, st>>>(pu, pq, ke, nx, ny, nz);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,12 +21,14 @@ the wrapper runs the plain version, `apply_hex_operator` then `mask0`.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from topopt_in_petsc_tpu_torch.ops.cuda_build import (
+    LIBRARY,
     CudaKernel,
     check_cuda_tensor,
 )
@@ -67,6 +69,14 @@ def hex_operator(
         nx, ny, nz, int(mask_x0),
     )
     return out
+
+
+def hex_operator_grid(nn) -> Tuple[int, int, int]:
+    """The CUDA launch grid of `hex_operator` on an `nn` node grid: a
+    profiler's record of K1 tells the multigrid levels apart by it."""
+    grid = (ctypes.c_int * 3)()
+    LIBRARY.get().hex_operator_grid(*nn, grid)
+    return tuple(grid)
 
 
 class BlockedHexOperator:

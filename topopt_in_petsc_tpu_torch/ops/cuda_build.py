@@ -4,8 +4,9 @@ The sources are compiled with nvcc, one process per source, all started
 together, and linked into one shared library with a plain C interface,
 loaded with ctypes.  The build runs at the first launch (never at
 import), goes to ``build/topopt_torch_kernels/`` beside the package, and
-is keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+is keyed by a hash of the flags, the sources and every header of
+``csrc/`` (`source_key`), so an edited source or header is rebuilt and an
+unchanged tree is loaded as it is.
 """
 
 from __future__ import annotations
@@ -35,16 +36,37 @@ _I = ctypes.c_int
 # C signature of every entry point: (argtypes), all returning cudaError_t
 _SIGNATURES = {
     "hex_operator_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hex_operator_grid": (_I, _I, _I, _P),
     "quadform_f32": (_P, _P, _P, _I, _I, _I, _P),
     "helmholtz_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "nodal_hex_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
-class _Library:
-    """The compiled library of this process, built at first use."""
+def source_key(csrc: Path = CSRC) -> str:
+    """Hash of the nvcc flags, the `SOURCES` and every ``*.cuh`` header
+    in `csrc`: the build is reused only while all of them are unchanged."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
+        h.update(name.encode())
+        h.update((csrc / name).read_bytes())
+    return h.hexdigest()[:16]
 
-    def __init__(self):
+
+class _Library:
+    """A compiled library of the `SOURCES` in `csrc`, built at first use,
+    with the entry points `symbols` (of `_SIGNATURES`) bound: loading
+    fails if one is missing.  `LIBRARY` is this package's, with all of
+    them; another checkout's `csrc` and the entry points it shares with
+    this tree give that tree's kernels, for timing two trees in one
+    process (tools/torch_kernel_levels.py)."""
+
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+                 symbols=tuple(_SIGNATURES)):
+        self.csrc = Path(csrc)
+        self.build_dir = Path(build_dir)
+        self.symbols = tuple(symbols)
         self._lock = threading.Lock()
         self._lib = None
         self.path = None
@@ -59,13 +81,10 @@ class _Library:
         return os.path.join(CUDA_HOME, "bin", "nvcc")
 
     def build(self) -> Path:
-        srcs = [CSRC / s for s in SOURCES]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
-            h.update(s.read_bytes())
-        path = BUILD_DIR / f"libtopopt_kernels_{h.hexdigest()[:16]}.so"
+        srcs = [self.csrc / s for s in SOURCES]
+        path = self.build_dir / f"libtopopt_kernels_{source_key(self.csrc)}.so"
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            self.build_dir.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
             nvcc = self._nvcc()
             t0 = time.perf_counter()
@@ -102,9 +121,9 @@ class _Library:
             if self._lib is None:
                 self.path = self.build()
                 lib = ctypes.CDLL(str(self.path))
-                for name, args in _SIGNATURES.items():
+                for name in self.symbols:
                     fn = getattr(lib, name)
-                    fn.argtypes = args
+                    fn.argtypes = _SIGNATURES[name]
                     fn.restype = ctypes.c_int
                 lib.topopt_cuda_error_string.argtypes = (ctypes.c_int,)
                 lib.topopt_cuda_error_string.restype = ctypes.c_char_p
