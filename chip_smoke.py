@@ -10,15 +10,17 @@ Phases, each printing its lines before the next starts:
      card at 9x7x5, 65x33x33, 13x11x7, the tile edges 9x9x33 and
      13x11x37, and the coarse levels 17^3 and 33^3 (rtol 2e-5, atol 1e-5
      of max|ref|, the JAX package's bar for its Pallas kernels); two
-     launches of K1 and of K2 bitwise equal (no atomics); and, for a KE
-     without the brick's reflection symmetry, the 576-FMA products;
+     launches of each of K1-K4 bitwise equal (no atomics); and, for
+     element matrices without the brick's reflection symmetry, the FMA
+     products;
   4. kernel times at 257^3 nodes against the plain versions (the kernel
      as a CUDA graph of one launch replays it, the plain version around
      its call; CUDA events, median of 15), each kernel's output first
-     held to the plain version's at the same bar; K1 at every level of
-     the 257^3 hierarchy and at 65x33x33, held to the plain version and
+     held to the plain version's at the same bar; K1 and K4 at every
+     level of the 257^3 hierarchy (K1 also at 65x33x33) and K3 at the PDE
+     filter's levels 257^3, 129^3 and 65^3, held to the plain version and
      then timed as a graph of back-to-back launches replays it, beside
-     its bound and its share, which must not exceed 100%;
+     the bound and its share, which must not exceed 100%;
   5. the default 65x33x33 run through the CLI entry for 10 iterations,
      held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
      CPU), with the launch counts of K1 and K2 over that run;
@@ -45,15 +47,19 @@ Phases, each printing its lines before the next starts:
      variant captured as CUDA graphs (replayed at iteration 4) against
      the same stage functions kept eager, equal to 1e-6 relative;
  14. the fused 257^3 run, 4 iterations (the last replays the graphs):
-     iteration-1 compliance against the golden, no stalled solve, peak
-     memory, and s/iteration beside phase 6's split driver;
+     iteration-1 compliance against the golden, no stalled solve, graphs
+     captured, peak memory, and s/iteration beside the split driver's
+     (phases 6 and 9); first of the default path, then (after its
+     profile) of the nodal and the -filter 2 paths;
  15. a torch.profiler window over one steady iteration of the split and
-     of the fused driver at 65x33x33 and at 257^3: host launch calls,
-     kernels on the device, device-to-host copies, host synchronizations,
-     and the device's idle share; and the runs of K1-K4 the device
-     recorded in each window, which must equal the growth of their launch
-     counts over it; in the fused 257^3 window, K1's runs and device time
-     per multigrid level, told apart by the launch grid.
+     of the fused driver at 65x33x33 and at 257^3, and of the fused nodal
+     and -filter 2 paths at 257^3: host launch calls, kernels on the
+     device, device-to-host copies, host synchronizations, and the
+     device's idle share; and the runs of K1-K4 the device recorded in
+     each window, which must equal the growth of their launch counts
+     over it; in the fused 257^3 windows, the runs and device time per
+     multigrid level of K1 (default and -filter 2), K4 (nodal) and K3
+     (-filter 2), told apart by the launch grid.
 A CUDA graph's replay counts the kernel launches it recorded
 (ops/cuda_build.py); phase 15 holds that count to the device's own
 record.  Then one JSON line of per-kernel results, whose
@@ -81,6 +87,8 @@ PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7), (9, 9, 33),
 # the bitwise repeats at these shapes (tile edges on every axis)
 REPEAT_SHAPES = ((13, 11, 37), (65, 33, 33))
 LEVELS_257 = ((257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3)
+# the PDE filter's levels at 257^3 (3 levels)
+PDE_LEVELS_257 = LEVELS_257[:3]
 RTOL, ATOL_REL = 2e-5, 1e-5
 # history bars against the JAX package on CPU: fx relative, gx and ch
 # absolute (gx[0] passes through 0 at iteration 1)
@@ -223,9 +231,17 @@ def phase_parity(dev):
     return errs
 
 
+def _bent(KE, seed):
+    """KE plus a symmetric perturbation of 1e-2 of max|KE|: no brick's
+    element matrix, so the kernels take their (8 dof)^2-FMA products."""
+    A = np.random.default_rng(seed).normal(size=KE.shape)
+    return np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                                dtype=np.float32)
+
+
 def _parity_forms(dev):
-    """Two launches of K1 and of K2 bitwise equal, and both kernels on a
-    KE without the reflection symmetry."""
+    """Two launches of each of K1-K4 bitwise equal, and each kernel on an
+    element matrix without the reflection symmetry."""
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
     from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 
@@ -237,17 +253,23 @@ def _parity_forms(dev):
                               hex_operator(vb, E, KE, True)),
             "K2": torch.equal(quadform(u, KE), quadform(u, KE)),
         }
+        for name, (dof, wrapper) in _nodal_wrappers().items():
+            K, un, En = _nodal_case(nn, 21, dev, dof)
+            same[name] = torch.equal(wrapper(un, En, K), wrapper(un, En, K))
         log(f"[3 parity] {nn} two launches bitwise equal: {same}")
         if not all(same.values()):
             raise AssertionError("a kernel is not deterministic")
-    # a KE that is no brick's: the kernels take their 576-FMA products
-    A = np.random.default_rng(3).normal(size=(24, 24))
-    KEn = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
-                               dtype=np.float32)
+    # matrices that are no brick's: the kernels take their FMA products
+    KEn = _bent(KE, 3)
     _compare(f"K1 {nn} KE without the symmetry",
              hex_operator(vb, E, KEn, True), _plain_k1(vb, E, KEn, True))
     _compare(f"K2 {nn} KE without the symmetry", quadform(u, KEn),
              _plain_k2(u, KEn))
+    for name, (dof, wrapper) in _nodal_wrappers().items():
+        K, un, En = _nodal_case(nn, 22, dev, dof)
+        Kn = _bent(K, 4)
+        _compare(f"{name} {nn} matrix without the symmetry",
+                 wrapper(un, En, Kn), _plain_nodal(un, En, Kn))
 
 
 def _median_ms(fns, reps=15):
@@ -286,27 +308,42 @@ def _share(name, nn, ms):
     return b, by, b / ms
 
 
-def _level_times(dev, errs):
-    """K1 at every level of the 257^3 hierarchy and at 65x33x33, held to
-    the plain version, then timed as a graph of back-to-back launches
-    replays it (the fused step's form), beside its bound."""
+def _level_case(name, nn, dev):
+    """(kernel call, plain call) of `name` on one level's inputs."""
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
+
+    if name == "K1":
+        KE, vb, E = _case(nn, 30, dev)
+        return (lambda: hex_operator(vb, E, KE, True),
+                lambda: _plain_k1(vb, E, KE, True))
+    dof, wrapper = _nodal_wrappers()[name]
+    K, un, En = _nodal_case(nn, 31, dev, dof)
+    return lambda: wrapper(un, En, K), lambda: _plain_nodal(un, En, K)
+
+
+def _level_times(dev, errs):
+    """K1 and K4 at every level of the 257^3 hierarchy (K1 also at
+    65x33x33), K3 at the PDE filter's levels 257^3, 129^3 and 65^3, each
+    held to the plain version, then timed as a graph of back-to-back
+    launches replays it (the fused step's form), beside its bound."""
     from topopt_in_petsc_tpu_torch.ops.roofline import work
 
-    for nn in (*LEVELS_257, (65, 33, 33)):
-        KE, vb, E = _case(nn, 30, dev)
-        errs["K1"] = max(errs["K1"], _compare(
-            f"K1 {nn}", hex_operator(vb, E, KE, True),
-            _plain_k1(vb, E, KE, True), "4 times"))
-        torch.cuda.empty_cache()
-        n = max(1, min(200, int(5e8 // work("K1", nn)[0])))
-        ms = _graph_ms(lambda: hex_operator(vb, E, KE, True), n)
-        b, by, share = _share("K1", nn, ms)
-        log(f"[4 times] K1 {'x'.join(map(str, nn))}: {ms:.5f} ms per "
-            f"launch (graph of {n}), bound {b:.5f} ms ({by}), "
-            f"{100 * share:.1f}% of the bound")
-        del vb, E
-    torch.cuda.empty_cache()
+    levels = {"K1": (*LEVELS_257, (65, 33, 33)), "K4": LEVELS_257,
+              "K3": PDE_LEVELS_257}
+    for name, sizes in levels.items():
+        for nn in sizes:
+            kernel, plain = _level_case(name, nn, dev)
+            errs[name] = max(errs[name], _compare(
+                f"{name} {nn}", kernel(), plain(), "4 times"))
+            torch.cuda.empty_cache()
+            n = max(1, min(200, int(5e8 // work(name, nn)[0])))
+            ms = _graph_ms(kernel, n)
+            b, by, share = _share(name, nn, ms)
+            log(f"[4 times] {name} {'x'.join(map(str, nn))}: {ms:.5f} ms "
+                f"per launch (graph of {n}), bound {b:.5f} ms ({by}), "
+                f"{100 * share:.1f}% of the bound")
+            del kernel, plain
+            torch.cuda.empty_cache()
 
 
 def phase_kernel_times(dev, errs):
@@ -333,7 +370,6 @@ def phase_kernel_times(dev, errs):
     del vb, E, u
     torch.cuda.empty_cache()
     times = {"K1": (k1, p1), "K2": (k2, p2)}
-    _level_times(dev, errs)
     for name, (dof, wrapper) in _nodal_wrappers().items():
         K, un, En = _nodal_case(nn, 8, dev, dof)
         errs[name] = max(errs[name], _compare(
@@ -345,6 +381,7 @@ def phase_kernel_times(dev, errs):
             f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms")
         del un, En
         torch.cuda.empty_cache()
+    _level_times(dev, errs)
     return times
 
 
@@ -487,33 +524,37 @@ def phase_graph_eager():
         raise AssertionError("graph replay differs from the eager step")
 
 
-def _fused_driver(size_args, maxItr):
+def _fused_driver(size_args, maxItr, args=()):
     from topopt_in_petsc_tpu_torch.config import TopOptConfig
     from topopt_in_petsc_tpu_torch.fused_driver import FusedDriver
 
     return FusedDriver(TopOptConfig.from_args([
         *size_args, "-fused", "1", "-maxItr", str(maxItr),
-        "-output_cadence_vtu", "0", "-restart", "0"]))
+        "-output_cadence_vtu", "0", "-restart", "0", *args]))
 
 
-def phase_fused_real_size(split_times):
-    """4 fused iterations at 257^3; returns the driver for the profile."""
+def phase_fused_real_size(split_times, tag="14 fused 257^3", args=()):
+    """4 fused iterations at 257^3 of the path `args`; returns the driver
+    for the profile."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    d = _fused_driver(_size_args(257), 5)
+    t0 = time.perf_counter()
+    d = _fused_driver(_size_args(257), 5, args)
+    setup = time.perf_counter() - t0
     h = d.run(4)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     d1 = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
-    log(f"[14 fused 257^3] fx {h['fx']}, it.1 rel diff to golden "
-        f"{d1:.3e}, s/iteration {h['time']} (split driver, phase 6: "
+    log(f"[{tag}] fx {h['fx']}, it.1 rel diff to golden "
+        f"{d1:.3e}, s/iteration {h['time']} (split driver: "
         f"{split_times}), solver iterations {h['iters']}, stalled "
         f"{h['stalled']}, max_memory_allocated {peak} B "
-        f"({peak / 2**30:.2f} GiB), graphs {d.step.graphs is not None}")
+        f"({peak / 2**30:.2f} GiB), graphs {d.step.graphs is not None}, "
+        f"driver set up in {setup:.1f} s")
     if (len(h["fx"]) != 4 or not np.isfinite(h["fx"]).all() or d1 > 1e-3
             or any(h["stalled"]) or d.step.graphs is None):
-        raise AssertionError("fused 257^3 run off the golden, stalled or "
-                             "not captured")
+        raise AssertionError(f"{tag} run off the golden, stalled or not "
+                             "captured")
     return d
 
 
@@ -527,49 +568,70 @@ def _bound(name, ms):
     return {"bound_ms": b, "bound_by": by, "library_ms": None}
 
 
+# the device's records in a trace: kernels, copies, fills
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx", "cudaGraphLaunch")
 # each kernel's device function, demangled or mangled (csrc/*.cu)
 _DEVICE_NAMES = {
     "K1": ("hex_operator_kernel",),
     "K2": ("quadform_kernel",),
-    "K3": ("nodal_hex_kernel<1>", "nodal_hex_kernelILi1E"),
-    "K4": ("nodal_hex_kernel<3>", "nodal_hex_kernelILi3E"),
+    "K3": ("helmholtz_kernel",),
+    "K4": ("nodal_hex_kernel",),
 }
 
 
-def _k1_by_level(prof, levels):
-    """K1's runs and device ms in a profile, grouped by launch grid and
-    named by the level of `levels` that launches with that grid."""
+def _grid_query(name):
+    """The launch-grid query of the operator kernel `name`."""
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator_grid
+    from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
+        helmholtz_grid,
+        nodal_hex_grid,
+    )
 
-    names = {hex_operator_grid(nn): "x".join(map(str, nn)) for nn in levels}
+    return {"K1": hex_operator_grid, "K3": helmholtz_grid,
+            "K4": nodal_hex_grid}[name]
+
+
+def _trace(prof):
+    """The events of a profile as its chrome trace records them: read
+    several times faster than `prof.events()` builds its event tree."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    by = {}
-    for e in events:
-        if (e.get("cat") != "kernel"
-                or "hex_operator_kernel" not in e.get("name", "")):
-            continue
-        grid = tuple(e.get("args", {}).get("grid", ()))
-        key = names.get(grid, f"grid {list(grid)}")
-        runs, us = by.get(key, (0, 0.0))
-        by[key] = (runs + 1, us + float(e.get("dur", 0.0)))
-    return {k: {"runs": r, "device_ms": round(us / 1e3, 4)}
-            for k, (r, us) in by.items()}
+            return json.load(f).get("traceEvents", [])
 
 
-def _profile(run_once, k1_levels=()):
+def _by_level(kernels, levels):
+    """Runs and device ms of each operator kernel of `levels` (name ->
+    grid sizes) among the device's `kernels` (trace events), grouped by
+    launch grid and named by the level that launches with that grid."""
+    out = {}
+    for name, sizes in levels.items():
+        query = _grid_query(name)
+        names = {query(nn): "x".join(map(str, nn)) for nn in sizes}
+        by = {}
+        for e in kernels:
+            if not any(s in e["name"] for s in _DEVICE_NAMES[name]):
+                continue
+            grid = tuple(e.get("args", {}).get("grid", ()))
+            key = names.get(grid, f"grid {list(grid)}")
+            runs, us = by.get(key, (0, 0.0))
+            by[key] = (runs + 1, us + float(e.get("dur", 0.0)))
+        out[name] = {k: {"runs": r, "device_ms": round(us / 1e3, 4)}
+                     for k, (r, us) in by.items()}
+    return out
+
+
+def _profile(run_once, levels=None):
     """Counts of one profiled call: host launch calls (graph launches
     included), kernels and device-to-host copies on the device, host
     synchronizations, wall and device-busy seconds, idle share, and the
     executions of K1-K4 that the device recorded, held equal to the
     growth of the wrappers' launch counts over the same call (graph
-    replays included); with `k1_levels`, K1's runs and time per level."""
-    from torch.autograd import DeviceType
+    replays included); with `levels` (kernel name -> grid sizes), those
+    kernels' runs and device time per level."""
     from torch.profiler import ProfilerActivity, profile
 
     kernels = _kernel_objects()
@@ -581,33 +643,37 @@ def _profile(run_once, k1_levels=()):
         run_once()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = prof.events()
-    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    t1 = time.perf_counter()
+    ev = [e for e in _trace(prof) if "name" in e]
+    dev = [e for e in ev if e.get("cat") in _DEVICE_CATS]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in dev)
     busy, end = 0.0, -1.0
     for a, b in spans:  # union of the device intervals, in us
         if b > end:
             busy += b - max(a, end)
             end = b
     busy *= 1e-6
+    on_gpu = [e for e in dev if e["cat"] == "kernel"]
     counted = {n: k.launches - before[n] for n, k in kernels.items()}
-    on_device = {n: sum(any(s in e.name for s in names) for e in dev)
+    on_device = {n: sum(any(s in e["name"] for s in names) for e in on_gpu)
                  for n, names in _DEVICE_NAMES.items()}
     if counted != on_device or not any(counted.values()):
         raise AssertionError(f"launch counts {counted} differ from the "
                              f"kernels the device ran {on_device}")
-    levels = {"k1_by_level": _k1_by_level(prof, k1_levels)} if k1_levels else {}
+    host = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    by_level = {"by_level": _by_level(on_gpu, levels)} if levels else {}
     return {
-        **levels,
+        **by_level,
         "kernel_runs": on_device,
-        "launch_calls": sum(e.name in _LAUNCH_CALLS for e in ev),
-        "graph_launches": sum(e.name == "cudaGraphLaunch" for e in ev),
-        "device_kernels": sum("Memcpy" not in e.name
-                              and "Memset" not in e.name for e in dev),
-        "d2h_copies": sum("DtoH" in e.name for e in dev),
-        "syncs": sum(e.name.endswith("Synchronize") for e in ev),
+        "launch_calls": sum(e["name"] in _LAUNCH_CALLS for e in host),
+        "graph_launches": sum(e["name"] == "cudaGraphLaunch" for e in host),
+        "device_kernels": len(on_gpu),
+        "d2h_copies": sum("DtoH" in e["name"] for e in dev),
+        "syncs": sum(e["name"].endswith("Synchronize") for e in host),
         "wall_s": round(wall, 4), "busy_s": round(busy, 4),
         "idle_share": round(1.0 - busy / wall, 3),
+        # host seconds spent reading the profile after the window
+        "read_s": round(time.perf_counter() - t1, 1),
     }
 
 
@@ -631,11 +697,30 @@ def phase_profiles(fused_257):
             fused = _fused_driver(size_args, 5)
             fused.run(4)
         counts["fused"] = _profile(lambda: fused.run(5),
-                                   LEVELS_257 if size_args else ())
+                                   {"K1": LEVELS_257} if size_args else None)
         del fused
         torch.cuda.empty_cache()
         for k, c in counts.items():
             log(f"[15 profile] {size} {k}: {json.dumps(c)}")
+
+
+def phase_fused_paths_257(split_times):
+    """The fused nodal and -filter 2 paths at 257^3: 4 iterations each as
+    phase 14, then one steady iteration (iteration 5, the second replay)
+    under torch.profiler, with K4's (nodal) and K3's (-filter 2) runs and
+    device time per level."""
+    paths = {
+        "nodal": (["-operator_impl", "pallas"], {"K4": LEVELS_257}),
+        "filter 2": (["-filter", "2"],
+                     {"K3": PDE_LEVELS_257, "K1": LEVELS_257}),
+    }
+    for tag, (args, levels) in paths.items():
+        d = phase_fused_real_size(split_times[tag],
+                                  f"14 fused 257^3 {tag}", args)
+        c = _profile(lambda: d.run(5), levels)
+        log(f"[15 profile] 257^3 fused {tag}: {json.dumps(c)}")
+        del d
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -646,20 +731,34 @@ def main() -> int:
     import topopt_in_petsc_tpu_torch  # noqa: F401  (sets TF32 off)
 
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phase {phase} done at {time.perf_counter() - t0:.1f} s")
+
     phase_environment()
     phase_build()
+    done(2)
     errs = phase_parity(dev)
+    done(3)
     times = phase_kernel_times(dev, errs)
+    done(4)
     phase_default_run()
-    split_times = phase_real_size()
+    done(5)
+    split_times = {"default": phase_real_size()}
+    done(6)
     phase_path_run("7 filter 2", ["-filter", "2"],
                    "jax_cpu_history_65x33x33_filter2.npz",
                    ("K1", "K2", "K3"))
     phase_path_run("8 nodal", ["-operator_impl", "pallas"],
                    "jax_cpu_history_65x33x33.npz", ("K4", "K2"),
                    iters_within=1)
-    phase_real_size("9 257^3 filter 2", ["-filter", "2"])
-    phase_real_size("9 257^3 nodal", ["-operator_impl", "pallas"])
+    done(8)
+    split_times["filter 2"] = phase_real_size("9 257^3 filter 2",
+                                              ["-filter", "2"])
+    split_times["nodal"] = phase_real_size(
+        "9 257^3 nodal", ["-operator_impl", "pallas"])
+    done(9)
     # the fused paths: this slice's main path, whose counts the kernel
     # line reports
     launches = phase_path_run(
@@ -673,8 +772,13 @@ def main() -> int:
         "12 fused filter 2", ["-fused", "1", "-filter", "2"],
         "jax_cpu_history_65x33x33_fused_filter2.npz",
         ("K1", "K2", "K3"))["K3"]
+    done(12)
     phase_graph_eager()
-    phase_profiles(phase_fused_real_size(split_times))
+    done(13)
+    phase_profiles(phase_fused_real_size(split_times["default"]))
+    done("14-15 default")
+    phase_fused_paths_257(split_times)
+    done("14-15 nodal and filter 2")
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",

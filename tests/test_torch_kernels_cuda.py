@@ -31,7 +31,9 @@ from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
     HELMHOLTZ,
     NODAL_HEX,
     helmholtz,
+    helmholtz_grid,
     nodal_hex,
+    nodal_hex_grid,
 )
 from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM, quadform
 
@@ -133,10 +135,8 @@ NODAL = {
 }
 
 
-@pytest.mark.parametrize("name", NODAL)
-@pytest.mark.parametrize("nn", SHAPES)
-def test_nodal_kernels_match_plain(dev, nn, name):
-    kernel, wrapper, dof, matrix = NODAL[name]
+def _nodal_case(name, nn, dev):
+    _, _, dof, matrix = NODAL[name]
     grid = Grid(nn=nn, lo=(0, 0, 0), hi=(2, 1, 1))
     KE = np.ascontiguousarray(matrix(grid), dtype=np.float32)
     rng = np.random.default_rng(sum(nn) + dof)
@@ -144,6 +144,14 @@ def test_nodal_kernels_match_plain(dev, nn, name):
                         device=dev)
     E = torch.as_tensor(rng.uniform(1e-3, 1.0, size=grid.ne),
                         dtype=torch.float32, device=dev)
+    return KE, u, E
+
+
+@pytest.mark.parametrize("name", NODAL)
+@pytest.mark.parametrize("nn", SHAPES)
+def test_nodal_kernels_match_plain(dev, nn, name):
+    kernel, wrapper, _, _ = NODAL[name]
+    KE, u, E = _nodal_case(name, nn, dev)
     before = kernel.launches
     got = wrapper(u, E, KE)
     assert kernel.launches == before + 1
@@ -152,6 +160,39 @@ def test_nodal_kernels_match_plain(dev, nn, name):
     # the plain version on CPU tensors launches nothing
     wrapper(u.cpu(), E.cpu(), KE)
     assert kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("name", NODAL)
+@pytest.mark.parametrize("nn", [(13, 11, 37), (65, 33, 33)])
+def test_nodal_kernels_repeat_bitwise(dev, nn, name):
+    """K3 and K4 sum each node's corners in a fixed order: two launches
+    give the same bits."""
+    wrapper = NODAL[name][1]
+    KE, u, E = _nodal_case(name, nn, dev)
+    assert torch.equal(wrapper(u, E, KE), wrapper(u, E, KE))
+
+
+@pytest.mark.parametrize("name", NODAL)
+def test_nodal_matrix_without_reflection_symmetry(dev, name):
+    """An element matrix that is no brick's takes the (8 dof)^2-FMA
+    product on its own."""
+    wrapper = NODAL[name][1]
+    KE, u, E = _nodal_case(name, (13, 11, 37), dev)
+    A = np.random.default_rng(4).normal(size=KE.shape)
+    bent = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                                dtype=np.float32)
+    _close(wrapper(u, E, bent),
+           apply_hex_operator(u, E, torch.as_tensor(bent, device=dev)))
+
+
+def test_nodal_grid_queries_tell_levels_apart(dev):
+    """A profile names K3's and K4's runs by level from their launch
+    grids: every level of the 257^3 hierarchy has its own."""
+    levels = [(n,) * 3 for n in (257, 129, 65, 33, 17)]
+    for query in (helmholtz_grid, nodal_hex_grid):
+        grids = [query(nn) for nn in levels]
+        assert all(len(g) == 3 and min(g) >= 1 for g in grids)
+        assert len(set(grids)) == len(levels)
 
 
 def test_wrappers_refuse_bad_tensors(dev):

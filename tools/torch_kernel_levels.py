@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's kernel K1 at every level of the 257^3
-multigrid hierarchy and at 65x33x33, and K2 at 257^3 and 65x33x33,
-optionally beside the same kernels built from another checkout, in turns
-on one GPU.
+"""Time the PyTorch/CUDA port's kernels K1 and K4 at every level of the
+257^3 multigrid hierarchy and at 65x33x33, K3 at the PDE filter's levels
+257^3, 129^3 and 65^3, and K2 at 257^3 and 65x33x33, optionally beside
+the same kernels built from another checkout, in turns on one GPU.
 
     python3 tools/torch_kernel_levels.py [--parent DIR] [--reps 15]
 
 --parent DIR: the root of another checkout (for instance the parent
 commit, `git archive` unpacked under build/); its csrc/ is built into its
-own library and its entry points hex_operator_f32 and quadform_f32 are
-timed beside this tree's.
+own library and its entry points hex_operator_f32, quadform_f32,
+nodal_hex_f32 and helmholtz_f32 are timed beside this tree's.
 
 Each time is topopt_in_petsc_tpu_torch/ops/roofline.py's `graph_ms`: CUDA
 events around the replay of a CUDA graph of n back-to-back launches (n so
@@ -32,6 +32,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 LEVELS = [(257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3,
           (65, 33, 33)]
+# the PDE filter's levels at 257^3 (3 levels)
+K3_LEVELS = [(257,) * 3, (129,) * 3, (65,) * 3]
 
 
 def _call(fn, *args):
@@ -77,7 +79,10 @@ def main(argv=None):
         return 1
     sys.path.insert(0, str(ROOT))
     from topopt_in_petsc_tpu_torch.grid import Grid
-    from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
+    from topopt_in_petsc_tpu_torch.models.elements import (
+        helmholtz_element_matrices,
+        hex8_stiffness,
+    )
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import mask0
     from topopt_in_petsc_tpu_torch.ops.cuda_build import LIBRARY, _Library
     from topopt_in_petsc_tpu_torch.ops.hex_operator import (
@@ -100,7 +105,8 @@ def main(argv=None):
         parent = _Library(
             csrc=args.parent / "topopt_in_petsc_tpu_torch" / "csrc",
             build_dir=ROOT / "build" / "parent_kernels",
-            symbols=("hex_operator_f32", "quadform_f32")).get()
+            symbols=("hex_operator_f32", "quadform_f32", "nodal_hex_f32",
+                     "helmholtz_f32")).get()
     dev = torch.device("cuda", 0)
 
     for nn in LEVELS:
@@ -135,6 +141,28 @@ def main(argv=None):
             del un, q
         del vb, E, out
         torch.cuda.empty_cache()
+        # K4 on u (nx, ny, nz, 3), and K3 on u (nx, ny, nz, 1) with the
+        # default rmin 0.08 (R = rmin / (2 sqrt 3)) on the filter's levels
+        nodal = [("K4", "nodal_hex_f32", 3, KE)]
+        if nn in K3_LEVELS:
+            KF = helmholtz_element_matrices(*grid.h, 0.08 / (2 * 3**0.5))[0]
+            nodal.append(("K3", "helmholtz_f32", 1,
+                          np.ascontiguousarray(KF, dtype=np.float32)))
+        for name, symbol, dof, K in nodal:
+            un = torch.as_tensor(rng.normal(size=(*nn, dof)),
+                                 dtype=torch.float32, device=dev)
+            En = torch.as_tensor(rng.uniform(1e-3, 1.0, size=grid.ne),
+                                 dtype=torch.float32, device=dev)
+            out = torch.empty_like(un)
+            p = (un.data_ptr(), En.data_ptr(), out.data_ptr(),
+                 K.ctypes.data, *nn)
+            calls = {"this": lambda: _call(getattr(lib, symbol), *p)}
+            if parent is not None:
+                calls["parent"] = lambda: _call(getattr(parent, symbol), *p)
+            ref = apply_hex_operator(un, En, torch.as_tensor(K, device=dev))
+            _time(name, nn, calls, out, ref, work(name, nn)[0], args.reps)
+            del un, En, out, ref
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -60,172 +60,35 @@ namespace {
 
 using namespace hex_tile;
 
-// Shared memory of a tile-form block, in the order laid out.
-template <int TY, int TZ>
-struct K1Tile {
-  using P = Plane<TY + 1, TZ + 1>;
-  static constexpr int FS = pad_to(P::ES, 16, 4);  // element-force stride
-  static constexpr int kNodes = kRing * P::PB;     // node-plane ring
-  static constexpr int kElems = kRing * P::ES;     // element-plane ring
-  static constexpr int kF = 24 * FS;  // E-scaled forces [dof][element]
-  static constexpr int kBytes = 4 * (kNodes + kElems + kF);
-};
+// A block owns 6 x 33 nodes, one element per thread: 7 x 34 elements, so
+// that the 2^k + 1 node extents of the multigrid levels nearly fill their
+// z tiles (33 in one, 65 in two, 129 in four, 257 in eight).
+constexpr int TY = 6, TZ = 33, NT = 256;
+constexpr int kSmem = Tile<TY, TZ, NT, 3>::kBytes;
 
 // kSym: the element product by the reflection blocks, else 576 FMAs
 // (hex_tile.cuh)
-template <int TY, int TZ, int NT, bool kSym>
+template <bool kSym>
 __global__ void __launch_bounds__(NT, 3)
 hex_operator_kernel(const float* __restrict__ u, const float* __restrict__ E,
                     float* __restrict__ out,
                     const __grid_constant__ KEParams ke, int nx, int ny,
                     int nz, int xc, int mask_x0) {
-  using T = K1Tile<TY, TZ>;
-  using P = typename T::P;
-  constexpr int FS = T::FS;
-  static_assert(TY * TZ <= NT, "one owned node per thread");
-  constexpr int NQ = (P::PB + NT - 1) / NT;   // staged node values per thread
-  constexpr int NEQ = (P::NE + NT - 1) / NT;  // staged elements per thread
-  extern __shared__ float4 smem[];
-  float* su = reinterpret_cast<float*>(smem);
-  float* sE = su + T::kNodes;
-  float* sf = sE + T::kElems;
-
-  const int tid = threadIdx.x;
-  const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY;
-  const int xa = blockIdx.z * xc, xb = min(xa + xc, nx);
-  const int nnode = nx * ny * nz, plane = ny * nz;
-  const int eplane = (ny - 1) * (nz - 1);
-  const int e_lo = max(xa - 1, 0), e_hi = min(xb - 1, nx - 2);
-
-  // this thread's staged values: node-plane slot q = tid + NT*m =
-  // (component i, node (y0-1+j, z0-1+k)) and element-plane slot tid + NT*m,
-  // with their offsets in a plane of u or E, -1 outside the grid or in
-  // the padding
-  int goff[NQ], eoff[NEQ];
-#pragma unroll
-  for (int m = 0; m < NQ; ++m) {
-    const int q = tid + m * NT;
-    const int i = q / P::CS, r = q - i * P::CS;
-    const int j = r / P::PZ, k = r - j * P::PZ;
-    const int y = y0 - 1 + j, z = z0 - 1 + k;
-    const bool in = q < P::PB && i < 3 && r < P::NP && y >= 0 && y < ny &&
-                    z >= 0 && z < nz;
-    goff[m] = in ? i * nnode + y * nz + z : -1;
-  }
-#pragma unroll
-  for (int m = 0; m < NEQ; ++m) {
-    const int r = tid + m * NT;
-    const int j = r / P::EZ, k = r - j * P::EZ;
-    const int y = y0 - 1 + j, z = z0 - 1 + k;
-    const bool in = r < P::NE && y >= 0 && y < ny - 1 && z >= 0 && z < nz - 1;
-    eoff[m] = in ? y * (nz - 1) + z : -1;
-  }
-
-  // node plane x and element plane x into ring slot x % kRing, each only
-  // if the block uses it (node planes up to e_hi + 1, element planes up
-  // to e_hi); one copy group per call
-  auto fetch = [&](int x) {
-    if (x <= e_hi + 1) {
-      float* dst = su + (x % kRing) * P::PB;
-      const float* src = u + x * plane;
-#pragma unroll
-      for (int m = 0; m < NQ; ++m)
-        if (tid + m * NT < P::PB)
-          cp_async4(dst + tid + m * NT, src + max(goff[m], 0), goff[m] >= 0);
-    }
-    if (x <= e_hi) {
-      float* dst = sE + (x % kRing) * P::ES;
-      const float* src = E + x * eplane;
-#pragma unroll
-      for (int m = 0; m < NEQ; ++m)
-        if (tid + m * NT < P::NE)
-          cp_async4(dst + tid + m * NT, src + max(eoff[m], 0), eoff[m] >= 0);
-    }
-    cp_async_commit();
-  };
-  // planes e_lo .. e_lo + kStages in flight: the group of plane p is the
-  // (p - e_lo)-th
-  for (int p = 0; p <= kStages; ++p) fetch(e_lo + p);
-
-  // the owned node (y0+jj, z0+kk): corner a's element is row
-  // base - oy(a) * EZ - oz(a) of an element plane
-  const int idx = min(tid, TY * TZ - 1);
-  const int jj = idx / TZ, kk = idx - jj * TZ;
-  const bool owner = tid < TY * TZ && y0 + jj < ny && z0 + kk < nz;
-  const int base = (jj + 1) * P::EZ + kk + 1;
-  const int oofs = (y0 + jj) * nz + z0 + kk;  // in a node plane of out
-  float nxt[3] = {0.f, 0.f, 0.f};
-
-  for (int ex = e_lo; ex <= e_hi; ++ex) {
-    // node planes ex and ex+1 (and element plane ex) have landed: the
-    // kStages - 1 newest groups may still be in flight
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    // into the slot of plane ex-1, which no product reads any more
-    fetch(ex + kStages + 1);
-    const int b0 = ex % kRing, b1 = (ex + 1) % kRing;
-    const float* sEp = sE + b0 * P::ES;
-
-    // element forces of plane ex
-    for (int r = tid; r < P::NE; r += NT) {
-      float ue[24], f[24];
-      gather_element<P>(su, b0, b1, P::row_offset(r), ue);
-      if constexpr (kSym) element_product_sym(ue, ke, f);
-      else element_product(ue, ke, f);
-      const float e = sEp[r];
-#pragma unroll
-      for (int c = 0; c < 24; ++c) sf[c * FS + r] = e * f[c];
-    }
-    __syncthreads();
-
-    // node sums: node plane ex completes, node plane ex+1 starts
-    float cur[3], nx1[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) cur[i] = nxt[i];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float v = sf[(3 * a + i) * FS + base - oy(a) * P::EZ - oz(a)];
-        if (ox(a)) nx1[i] += v;
-        else cur[i] += v;
-      }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) nxt[i] = nx1[i];
-    if (owner && ex >= xa) {
-      const bool zero = mask_x0 && ex == 0;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        out[i * nnode + ex * plane + oofs] = zero ? 0.f : cur[i];
-    }
-  }
-  // the last node plane of the grid has no element plane after it
-  if (owner && e_hi + 1 < xb)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      out[i * nnode + (e_hi + 1) * plane + oofs] = nxt[i];
+  tile_operator<TY, TZ, NT, 3, false, kSym>(u, E, out, ke, nx, ny, nz, xc,
+                                            mask_x0);
 }
 
 // Launches the kernel on an nx x ny x nz grid, or only returns its grid
-// when ke is null.  A block owns 6 x 33 nodes, one element per thread: 7 x
-// 34 elements, so that the 2^k + 1 node extents of the multigrid levels
-// nearly fill their z tiles (33 in one, 65 in two, 129 in four, 257 in
-// eight).
+// when ke is null.
 template <bool kSym>
 dim3 launch_tile(const float* u, const float* E, float* out,
                  const KEParams* ke, int nx, int ny, int nz, int mask_x0,
                  cudaStream_t stream) {
-  constexpr int TY = 6, TZ = 33, NT = 256;
-  constexpr int smem = K1Tile<TY, TZ>::kBytes;
-  const int resident =
-      resident_blocks<hex_operator_kernel<TY, TZ, NT, kSym>>(NT, smem);
-  const int gy = (ny + TY - 1) / TY, gz = (nz + TZ - 1) / TZ;
-  int chunks;
-  // a chunk of node planes also computes the element plane before it
-  const int xc = x_chunk(nx, 1, gy * gz, resident, &chunks);
-  const dim3 grid(gz, gy, chunks);
+  int xc;
+  const dim3 grid =
+      tile_grid<hex_operator_kernel<kSym>, TY, TZ, NT>(nx, ny, nz, kSmem, &xc);
   if (ke)
-    hex_operator_kernel<TY, TZ, NT, kSym><<<grid, NT, smem, stream>>>(
+    hex_operator_kernel<kSym><<<grid, NT, kSmem, stream>>>(
         u, E, out, *ke, nx, ny, nz, xc, mask_x0);
   return grid;
 }

@@ -21,16 +21,15 @@ the wrapper runs the plain version, `apply_hex_operator` then `mask0`.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from topopt_in_petsc_tpu_torch.ops.cuda_build import (
-    LIBRARY,
     CudaKernel,
     check_cuda_tensor,
+    launch_grid,
 )
 from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
 
@@ -74,9 +73,7 @@ def hex_operator(
 def hex_operator_grid(nn) -> Tuple[int, int, int]:
     """The CUDA launch grid of `hex_operator` on an `nn` node grid: a
     profiler's record of K1 tells the multigrid levels apart by it."""
-    grid = (ctypes.c_int * 3)()
-    LIBRARY.get().hex_operator_grid(*nn, grid)
-    return tuple(grid)
+    return launch_grid("hex_operator_grid", nn)
 
 
 class BlockedHexOperator:

@@ -40,6 +40,8 @@ _SIGNATURES = {
     "quadform_f32": (_P, _P, _P, _I, _I, _I, _P),
     "helmholtz_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "nodal_hex_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "helmholtz_grid": (_I, _I, _I, _P),
+    "nodal_hex_grid": (_I, _I, _I, _P),
 }
 
 
@@ -165,6 +167,15 @@ class CudaKernel:
             self.captured += 1
         else:
             self.launches += 1
+
+
+def launch_grid(symbol: str, nn) -> tuple:
+    """The CUDA launch grid that the grid query `symbol` (for instance
+    "hex_operator_grid") reports for an `nn` node grid: a profiler's
+    record of a tile kernel tells the multigrid levels apart by it."""
+    grid = (ctypes.c_int * 3)()
+    getattr(LIBRARY.get(), symbol)(*nn, grid)
+    return tuple(grid)
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, shape, dtype) -> None:

@@ -9,8 +9,10 @@ their interface: ``apply(u, E)``, ``prepare_coef(E)`` and
 dof)`` f32 tensor and E a contiguous ``(nx-1, ny-1, nz-1)`` f32 tensor;
 the kernels (csrc/nodal_hex.cu) read both as they are, so
 `prepare_coef` is "contiguous f32" and `apply_prepared` is the same
-launch as `apply`.  For CPU tensors the wrappers run the plain version,
-`ops/hex_operator.py::apply_hex_operator`.
+launch as `apply`.  Both kernels are K1's shared-memory tile kernel
+(csrc/hex_tile.cuh) on the node-major layout, with the brick's
+reflection-block element product.  For CPU tensors the wrappers run the
+plain version, `ops/hex_operator.py::apply_hex_operator`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from topopt_in_petsc_tpu_torch.ops.cuda_build import (
     CudaKernel,
     check_cuda_tensor,
+    launch_grid,
 )
 from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
 
@@ -65,6 +68,16 @@ def nodal_hex(u: torch.Tensor, eb: torch.Tensor,
     """K4: u (nx, ny, nz, 3) f32, eb (nx-1, ny-1, nz-1) f32, KE the
     (24, 24) f32 elasticity element matrix."""
     return _nodal_operator(NODAL_HEX, 3, u, eb, KE)
+
+
+def helmholtz_grid(nn) -> Tuple[int, int, int]:
+    """The CUDA launch grid of K3 on an `nn` node grid."""
+    return launch_grid("helmholtz_grid", nn)
+
+
+def nodal_hex_grid(nn) -> Tuple[int, int, int]:
+    """The CUDA launch grid of K4 on an `nn` node grid."""
+    return launch_grid("nodal_hex_grid", nn)
 
 
 class NodalHexApply:
