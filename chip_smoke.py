@@ -9,18 +9,20 @@ Phases, each printing its lines before the next starts:
   3. kernel parity: each kernel against its plain PyTorch version on the
      card at 9x7x5, 65x33x33, 13x11x7, the tile edges 9x9x33 and
      13x11x37, and the coarse levels 17^3 and 33^3 (rtol 2e-5, atol 1e-5
-     of max|ref|, the JAX package's bar for its Pallas kernels); two
-     launches of each of K1-K4 bitwise equal (no atomics); and, for
-     element matrices without the brick's reflection symmetry, the FMA
-     products;
+     of max|ref|, the JAX package's bar for its Pallas kernels; K1's
+     bf16-storage build, K1-bf16, rtol 2^-7: both round once to bf16);
+     two launches of each of K1-K4 and K1-bf16 bitwise equal (no
+     atomics); and, for element matrices without the brick's reflection
+     symmetry, the FMA products;
   4. kernel times at 257^3 nodes against the plain versions (the kernel
      as a CUDA graph of one launch replays it, the plain version around
      its call; CUDA events, median of 15), each kernel's output first
      held to the plain version's at the same bar; K1 and K4 at every
-     level of the 257^3 hierarchy (K1 also at 65x33x33) and K3 at the PDE
-     filter's levels 257^3, 129^3 and 65^3, held to the plain version and
-     then timed as a graph of back-to-back launches replays it, beside
-     the bound and its share, which must not exceed 100%;
+     level of the 257^3 hierarchy (K1 also at 65x33x33, K1-bf16 also at
+     513^3 and 65x33x33) and K3 at the PDE filter's levels 257^3, 129^3
+     and 65^3, held to the plain version and then timed as a graph of
+     back-to-back launches replays it, beside the bound and its share,
+     which must not exceed 100%;
   5. the default 65x33x33 run through the CLI entry for 10 iterations,
      held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
      CPU), with the launch counts of K1 and K2 over that run;
@@ -59,11 +61,25 @@ Phases, each printing its lines before the next starts:
      each window, which must equal the growth of their launch counts
      over it; in the fused 257^3 windows, the runs and device time per
      multigrid level of K1 (default and -filter 2), K4 (nodal) and K3
-     (-filter 2), told apart by the launch grid.
+     (-filter 2), told apart by the launch grid;
+ 16. the bf16 V-cycle (-mg_dtype bfloat16) at 65x33x33 for 10 iterations:
+     split and fused, resident and nodal, and -mg_dtype mixed (split) and
+     -mg_fine_post 1 (fused), each held to its driver's f32 history at the
+     bars of phases 5 and 10, its solver iterations printed beside the
+     history's; graph = eager for the fused bf16 step;
+ 17. the bf16 V-cycle at 257^3: 2 split iterations (also -mg_dtype mixed
+     and -mg_fine_post 2) and 4 fused held to the golden iteration-1
+     compliance, the fused s/iteration beside phase 14's f32 ones, peak
+     memory, and a profiled steady fused iteration with K1's and
+     K1-bf16's runs and device time per level;
+ 18. the one-card 513^3 recipe (405M dof, -nlvls 6 -smooth_sweeps 2), one
+     split iteration in f32 and one with the bf16 V-cycle: fx agree to
+     1e-3, solver iterations, peak memory and seconds.
 A CUDA graph's replay counts the kernel launches it recorded
 (ops/cuda_build.py); phase 15 holds that count to the device's own
 record.  Then one JSON line of per-kernel results, whose
-launch counts are the fused paths' (phases 10-12) and whose bounds are
+launch counts are the fused paths' (phases 10-12, K1-bf16's phase 16's
+fused resident run) and whose bounds are
 topopt_in_petsc_tpu_torch/ops/roofline.py's for phase 4's inputs, and,
 last, the JSON status line.  Any failure raises: the exit code is
 nonzero and no status line is printed.  Nothing falls back to the CPU or
@@ -90,6 +106,9 @@ LEVELS_257 = ((257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3)
 # the PDE filter's levels at 257^3 (3 levels)
 PDE_LEVELS_257 = LEVELS_257[:3]
 RTOL, ATOL_REL = 2e-5, 1e-5
+# K1-bf16 against its plain version: both compute in f32 and round once to
+# bf16, so at most one rounding falls the other way (2^-7 relative)
+BF16_RTOL = 2.0**-7
 # history bars against the JAX package on CPU: fx relative, gx and ch
 # absolute (gx[0] passes through 0 at iteration 1)
 FX_RTOL, GX_ATOL, CH_ATOL = 1e-3, 1e-4, 1e-3
@@ -184,6 +203,17 @@ def _plain_k1(vb, eb, KE, mask_x0):
     return mask0(out) if mask_x0 else out
 
 
+def _bf16_case(nn, seed, dev):
+    """K1-bf16's inputs: K1's, rounded to bf16."""
+    KE, u, E = _case(nn, seed, dev)
+    return KE, u.to(torch.bfloat16), E.to(torch.bfloat16)
+
+
+def _plain_k1_bf16(vb, eb, KE, mask_x0):
+    """K1-bf16's plain version: K1's on the widened inputs, rounded."""
+    return _plain_k1(vb.float(), eb.float(), KE, mask_x0).to(torch.bfloat16)
+
+
 def _plain_k2(u, KE):
     from topopt_in_petsc_tpu_torch.ops.hex_operator import (
         element_quadratic_form,
@@ -194,11 +224,12 @@ def _plain_k2(u, KE):
     )
 
 
-def _compare(name, got, ref, phase="3 parity"):
+def _compare(name, got, ref, phase="3 parity", rtol=RTOL):
+    got, ref = got.float(), ref.float()
     err = float(torch.max(torch.abs(got - ref)))
     scale = float(torch.max(torch.abs(ref)))
     ok = bool(torch.all(
-        torch.abs(got - ref) <= ATOL_REL * scale + RTOL * torch.abs(ref)
+        torch.abs(got - ref) <= ATOL_REL * scale + rtol * torch.abs(ref)
     ))
     log(f"[{phase}] {name}: max|err| {err:.3e}, max|ref| {scale:.3e}, "
         f"{'ok' if ok else 'FAIL'}")
@@ -211,14 +242,19 @@ def phase_parity(dev):
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
     from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K1-bf16": 0.0}
     for i, nn in enumerate(PARITY_SHAPES):
         KE, vb, E = _case(nn, i, dev)
+        _, vh, Eh = _bf16_case(nn, i, dev)
         for mask_x0 in (False, True):
             got = hex_operator(vb, E, KE, mask_x0)
             ref = _plain_k1(vb, E, KE, mask_x0)
             errs["K1"] = max(errs["K1"], _compare(
                 f"K1 {nn} mask_x0={mask_x0}", got, ref))
+            errs["K1-bf16"] = max(errs["K1-bf16"], _compare(
+                f"K1-bf16 {nn} mask_x0={mask_x0}",
+                hex_operator(vh, Eh, KE, mask_x0),
+                _plain_k1_bf16(vh, Eh, KE, mask_x0), rtol=BF16_RTOL))
         u = vb.permute(1, 2, 3, 0).contiguous()
         errs["K2"] = max(errs["K2"], _compare(
             f"K2 {nn}", quadform(u, KE), _plain_k2(u, KE)))
@@ -247,11 +283,14 @@ def _parity_forms(dev):
 
     for nn in REPEAT_SHAPES:
         KE, vb, E = _case(nn, 20, dev)
+        _, vh, Eh = _bf16_case(nn, 20, dev)
         u = vb.permute(1, 2, 3, 0).contiguous()
         same = {
             "K1": torch.equal(hex_operator(vb, E, KE, True),
                               hex_operator(vb, E, KE, True)),
             "K2": torch.equal(quadform(u, KE), quadform(u, KE)),
+            "K1-bf16": torch.equal(hex_operator(vh, Eh, KE, True),
+                                   hex_operator(vh, Eh, KE, True)),
         }
         for name, (dof, wrapper) in _nodal_wrappers().items():
             K, un, En = _nodal_case(nn, 21, dev, dof)
@@ -265,6 +304,9 @@ def _parity_forms(dev):
              hex_operator(vb, E, KEn, True), _plain_k1(vb, E, KEn, True))
     _compare(f"K2 {nn} KE without the symmetry", quadform(u, KEn),
              _plain_k2(u, KEn))
+    _compare(f"K1-bf16 {nn} KE without the symmetry",
+             hex_operator(vh, Eh, KEn, True),
+             _plain_k1_bf16(vh, Eh, KEn, True), rtol=BF16_RTOL)
     for name, (dof, wrapper) in _nodal_wrappers().items():
         K, un, En = _nodal_case(nn, 22, dev, dof)
         Kn = _bent(K, 4)
@@ -316,6 +358,10 @@ def _level_case(name, nn, dev):
         KE, vb, E = _case(nn, 30, dev)
         return (lambda: hex_operator(vb, E, KE, True),
                 lambda: _plain_k1(vb, E, KE, True))
+    if name == "K1-bf16":
+        KE, vb, E = _bf16_case(nn, 30, dev)
+        return (lambda: hex_operator(vb, E, KE, True),
+                lambda: _plain_k1_bf16(vb, E, KE, True))
     dof, wrapper = _nodal_wrappers()[name]
     K, un, En = _nodal_case(nn, 31, dev, dof)
     return lambda: wrapper(un, En, K), lambda: _plain_nodal(un, En, K)
@@ -329,12 +375,14 @@ def _level_times(dev, errs):
     from topopt_in_petsc_tpu_torch.ops.roofline import work
 
     levels = {"K1": (*LEVELS_257, (65, 33, 33)), "K4": LEVELS_257,
-              "K3": PDE_LEVELS_257}
+              "K3": PDE_LEVELS_257,
+              "K1-bf16": ((513,) * 3, *LEVELS_257, (65, 33, 33))}
     for name, sizes in levels.items():
         for nn in sizes:
             kernel, plain = _level_case(name, nn, dev)
             errs[name] = max(errs[name], _compare(
-                f"{name} {nn}", kernel(), plain(), "4 times"))
+                f"{name} {nn}", kernel(), plain(), "4 times",
+                rtol=BF16_RTOL if name == "K1-bf16" else RTOL))
             torch.cuda.empty_cache()
             n = max(1, min(200, int(5e8 // work(name, nn)[0])))
             ms = _graph_ms(kernel, n)
@@ -369,7 +417,17 @@ def phase_kernel_times(dev, errs):
     log(f"[4 times] 257^3 K2 quadform {k2:.4f} ms, plain {p2:.4f} ms")
     del vb, E, u
     torch.cuda.empty_cache()
-    times = {"K1": (k1, p1), "K2": (k2, p2)}
+    KE, vh, Eh = _bf16_case(nn, 7, dev)
+    errs["K1-bf16"] = max(errs["K1-bf16"], _compare(
+        f"K1-bf16 {nn}", hex_operator(vh, Eh, KE, True),
+        _plain_k1_bf16(vh, Eh, KE, True), "4 times", rtol=BF16_RTOL))
+    kb = _graph_ms(lambda: hex_operator(vh, Eh, KE, True), 1)
+    pb = _median_ms([lambda: _plain_k1_bf16(vh, Eh, KE, True)])[0]
+    log(f"[4 times] 257^3 K1-bf16 hex_operator {kb:.4f} ms, plain "
+        f"{pb:.4f} ms")
+    del vh, Eh
+    torch.cuda.empty_cache()
+    times = {"K1": (k1, p1), "K2": (k2, p2), "K1-bf16": (kb, pb)}
     for name, (dof, wrapper) in _nodal_wrappers().items():
         K, un, En = _nodal_case(nn, 8, dev, dof)
         errs[name] = max(errs[name], _compare(
@@ -444,27 +502,34 @@ def _load_history(name):
 
 
 def _kernel_objects():
-    from topopt_in_petsc_tpu_torch.ops.blocked_hex import HEX_OPERATOR
+    from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
+        HEX_OPERATOR,
+        HEX_OPERATOR_BF16,
+    )
     from topopt_in_petsc_tpu_torch.ops.nodal_hex import HELMHOLTZ, NODAL_HEX
     from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
 
     return {"K1": HEX_OPERATOR, "K2": QUADFORM, "K3": HELMHOLTZ,
-            "K4": NODAL_HEX}
+            "K4": NODAL_HEX, "K1-bf16": HEX_OPERATOR_BF16}
 
 
 def phase_path_run(tag, args, history, names, iters_within=None):
     """One 10-iteration 65x33x33 run of a path through the CLI entry, with
     the launch counts of its kernels `names` over that run."""
     kernels = _kernel_objects()
+    ref = _load_history(history)
     with tempfile.TemporaryDirectory() as tmp:
         for k in kernels.values():
             k.launches = 0
+        t0 = time.perf_counter()
         h = _run_cli([*args, "-maxItr", "10", "-output_cadence_vtu", "0"],
                      tmp)
         torch.cuda.synchronize()
         launches = {n: kernels[n].launches for n in names}
-    log(f"[{tag}] launches over the run: {launches}")
-    _check_history(tag, h, _load_history(history), launches, iters_within)
+    log(f"[{tag}] launches over the run: {launches}; the run took "
+        f"{time.perf_counter() - t0:.1f} s; the f32 history's solver "
+        f"iterations {ref['iters'].tolist()}")
+    _check_history(tag, h, ref, launches, iters_within)
     return launches
 
 
@@ -483,8 +548,9 @@ def phase_real_size(tag="6 257^3", args=()):
     d = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
     log(f"[{tag}] fx {h['fx'].tolist()}, it.1 rel diff to golden "
         f"{d:.3e}, s/iteration {h['time'].tolist()}, solver iterations "
-        f"{h['iters'].tolist()}, stalled {h['stalled'].tolist()}, "
-        f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+        f"{h['iters'].tolist()} (golden it.1: 27), stalled "
+        f"{h['stalled'].tolist()}, max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
     if len(h["fx"]) != 2 or not np.isfinite(h["fx"]).all():
         raise AssertionError(f"bad history: {h}")
     if d > 1e-3 or h["stalled"].any():
@@ -494,9 +560,10 @@ def phase_real_size(tag="6 257^3", args=()):
 
 # -- the fused driver (-fused 1) ------------------------------------------- #
 
-def phase_graph_eager():
+def phase_graph_eager(tag="13 graph=eager", **options):
     """The fused step replayed from its CUDA graphs against the same stage
-    functions run eagerly, 4 iterations at 65x33x33."""
+    functions run eagerly, 4 iterations at 65x33x33, with the
+    configuration `options`."""
     from topopt_in_petsc_tpu_torch.config import TopOptConfig
     from topopt_in_petsc_tpu_torch.parallel.fused_step import (
         make_fused_step,
@@ -504,7 +571,7 @@ def phase_graph_eager():
 
     runs = []
     for graphs in (True, False):
-        step, state = make_fused_step(TopOptConfig(fused=True),
+        step, state = make_fused_step(TopOptConfig(fused=True, **options),
                                       graphs=graphs)
         for itr in range(1, 5):
             step(state, itr)
@@ -517,7 +584,7 @@ def phase_graph_eager():
                     / torch.max(torch.abs(getattr(ref, f))))
            for f in ("fx", "gx", "ch", "mnd", "x")}
     its = (int(got.solver_iters), int(ref.solver_iters))
-    log(f"[13 graph=eager] {len(step.graphs)} graphs; max rel diff "
+    log(f"[{tag}] {len(step.graphs)} graphs; max rel diff "
         f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, solver iterations "
         f"{its[0]} and {its[1]} at iteration 4")
     if max(rel.values()) > 1e-6 or its[0] != its[1]:
@@ -534,8 +601,8 @@ def _fused_driver(size_args, maxItr, args=()):
 
 
 def phase_fused_real_size(split_times, tag="14 fused 257^3", args=()):
-    """4 fused iterations at 257^3 of the path `args`; returns the driver
-    for the profile."""
+    """4 fused iterations at 257^3 of the path `args`; returns the driver,
+    for the profile, and its s/iteration."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -546,7 +613,7 @@ def phase_fused_real_size(split_times, tag="14 fused 257^3", args=()):
     peak = torch.cuda.max_memory_allocated()
     d1 = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
     log(f"[{tag}] fx {h['fx']}, it.1 rel diff to golden "
-        f"{d1:.3e}, s/iteration {h['time']} (split driver: "
+        f"{d1:.3e}, s/iteration {h['time']} (beside: "
         f"{split_times}), solver iterations {h['iters']}, stalled "
         f"{h['stalled']}, max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB), graphs {d.step.graphs is not None}, "
@@ -555,7 +622,7 @@ def phase_fused_real_size(split_times, tag="14 fused 257^3", args=()):
             or any(h["stalled"]) or d.step.graphs is None):
         raise AssertionError(f"{tag} run off the golden, stalled or not "
                              "captured")
-    return d
+    return d, h["time"]
 
 
 def _bound(name, ms):
@@ -578,6 +645,7 @@ _DEVICE_NAMES = {
     "K2": ("quadform_kernel",),
     "K3": ("helmholtz_kernel",),
     "K4": ("nodal_hex_kernel",),
+    "K1-bf16": ("hex_operator_bf16_kernel",),
 }
 
 
@@ -590,7 +658,9 @@ def _grid_query(name):
     )
 
     return {"K1": hex_operator_grid, "K3": helmholtz_grid,
-            "K4": nodal_hex_grid}[name]
+            "K4": nodal_hex_grid,
+            "K1-bf16": lambda nn: hex_operator_grid(nn, torch.bfloat16),
+            }[name]
 
 
 def _trace(prof):
@@ -715,12 +785,113 @@ def phase_fused_paths_257(split_times):
                      {"K3": PDE_LEVELS_257, "K1": LEVELS_257}),
     }
     for tag, (args, levels) in paths.items():
-        d = phase_fused_real_size(split_times[tag],
-                                  f"14 fused 257^3 {tag}", args)
+        d, _ = phase_fused_real_size(split_times[tag],
+                                     f"14 fused 257^3 {tag}", args)
         c = _profile(lambda: d.run(5), levels)
         log(f"[15 profile] 257^3 fused {tag}: {json.dumps(c)}")
         del d
         torch.cuda.empty_cache()
+
+
+# -- the reduced-precision V-cycle (-mg_dtype bfloat16|mixed) --------------- #
+
+BF16 = ["-mg_dtype", "bfloat16"]
+# the f32 history of the split and the fused driver
+SPLIT_HISTORY = "jax_cpu_history_65x33x33.npz"
+FUSED_HISTORY = "jax_cpu_history_65x33x33_fused.npz"
+
+
+def phase_bf16_runs():
+    """The bf16 V-cycle at 65x33x33, 10 iterations through the CLI entry:
+    split and fused on the resident and the nodal path, `mixed` and
+    `-mg_fine_post 1`, each held to the f32 history of its driver; then
+    graph = eager for the fused bf16 step.  Returns the kernel launches of
+    the fused resident bf16 run, this slice's path."""
+    runs = {
+        "split": (BF16, SPLIT_HISTORY, ("K1", "K1-bf16", "K2")),
+        "split nodal": ([*BF16, "-operator_impl", "pallas"], SPLIT_HISTORY,
+                        ("K4", "K2")),
+        "fused": ([*BF16, "-fused", "1"], FUSED_HISTORY,
+                  ("K1", "K1-bf16", "K2")),
+        "fused nodal": ([*BF16, "-fused", "1", "-operator_impl", "pallas"],
+                        FUSED_HISTORY, ("K4", "K2")),
+        "split mixed": (["-mg_dtype", "mixed"], SPLIT_HISTORY,
+                        ("K1", "K1-bf16", "K2")),
+        "fused mg_fine_post 1": ([*BF16, "-mg_fine_post", "1", "-fused",
+                                  "1"], FUSED_HISTORY,
+                                 ("K1", "K1-bf16", "K2")),
+    }
+    launches = None
+    for name, (args, history, names) in runs.items():
+        got = phase_path_run(f"16 bf16 {name}", args, history, names)
+        if name == "fused":
+            launches = got
+    phase_graph_eager("16 bf16 graph=eager", mg_dtype="bfloat16")
+    return launches
+
+
+def phase_bf16_257(fused_f32_times):
+    """The bf16 V-cycle at 257^3: 2 split iterations (phase 6 with
+    -mg_dtype bfloat16, then mixed and with -mg_fine_post 2) and 4 fused
+    (phase 14 with -mg_dtype bfloat16, the times beside phase 14's f32
+    ones), then one steady fused iteration under torch.profiler with K1's
+    and K1-bf16's runs and device time per level."""
+    phase_real_size("17 bf16 257^3 split", BF16)
+    phase_real_size("17 mixed 257^3 split", ["-mg_dtype", "mixed"])
+    phase_real_size("17 bf16 mg_fine_post 2 257^3 split",
+                    [*BF16, "-mg_fine_post", "2"])
+    d, _ = phase_fused_real_size(f"f32 {fused_f32_times}",
+                                 "17 bf16 257^3 fused", BF16)
+    c = _profile(lambda: d.run(5), {"K1": LEVELS_257[:1],
+                                    "K1-bf16": LEVELS_257})
+    log(f"[17 profile] 257^3 fused bf16: {json.dumps(c)}")
+    del d
+    torch.cuda.empty_cache()
+
+
+def phase_513():
+    """The one-card 513^3 recipe (405M dof): one split-driver iteration of
+    -nlvls 6 -smooth_sweeps 2 in f32 (-mg_dtype same) and with the bf16
+    V-cycle; fx agree to 1e-3, peak memory and seconds of each.  The f32
+    run must resolve to the f32 V-cycle (config.MG_BF16_DOF)."""
+    import gc
+
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+
+    args = ["-nx", "513", "-ny", "513", "-nz", "513", "-nlvls", "6",
+            "-smooth_sweeps", "2", "-maxItr", "1", "-output_cadence_vtu",
+            "0", "-restart", "0"]
+    out = {}
+    for mode in ("same", "bfloat16"):
+        cfg = TopOptConfig.from_args([*args, "-mg_dtype", mode])
+        resolved = cfg.resolve_mg_mode(cfg.ndof)
+        if resolved != mode:
+            raise AssertionError(f"513^3 -mg_dtype {mode} resolves to "
+                                 f"{resolved}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            h = _run_cli([*args, "-mg_dtype", mode], tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out[mode] = h
+        log(f"[18 513^3 {mode}] fx {h['fx'].tolist()}, solver iterations "
+            f"{h['iters'].tolist()}, stalled {h['stalled'].tolist()}, "
+            f"s/iteration {h['time'].tolist()}, command {wall:.1f} s, "
+            f"cheby_lower {cfg.resolve_cheby_lower(cfg.ndof)}, "
+            f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB, "
+            f"{peak / cfg.ndof:.1f} B per dof)")
+        if (not np.isfinite(h["fx"]).all() or h["stalled"].any()):
+            raise AssertionError(f"513^3 {mode} run stalled or not finite")
+    f32, bf = out["same"]["fx"][0], out["bfloat16"]["fx"][0]
+    rel = abs(bf - f32) / abs(f32)
+    log(f"[18 513^3] bf16 fx {bf} against f32 fx {f32}: rel {rel:.3e} "
+        f"(bar 1e-3)")
+    if rel > 1e-3:
+        raise AssertionError("513^3 bf16 fx off the f32 fx")
 
 
 def main() -> int:
@@ -775,10 +946,18 @@ def main() -> int:
     done(12)
     phase_graph_eager()
     done(13)
-    phase_profiles(phase_fused_real_size(split_times["default"]))
+    fused_257, fused_times = phase_fused_real_size(split_times["default"])
+    phase_profiles(fused_257)
+    del fused_257
     done("14-15 default")
     phase_fused_paths_257(split_times)
     done("14-15 nodal and filter 2")
+    launches["K1-bf16"] = phase_bf16_runs()["K1-bf16"]
+    done(16)
+    phase_bf16_257(fused_times)
+    done(17)
+    phase_513()
+    done(18)
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",
@@ -805,6 +984,12 @@ def main() -> int:
          "launches": launches["K4"], "max_abs_err": errs["K4"],
          "ms": times["K4"][0], "plain_ms": times["K4"][1],
          **_bound("K4", times["K4"][0])},
+        {"name": "hex_operator bf16 (K1 bf16)", "route": "cuda",
+         "source": src + "hex_operator.cu",
+         "replaces": "topopt_in_petsc_tpu/ops/blocked_hex.py:65",
+         "launches": launches["K1-bf16"], "max_abs_err": errs["K1-bf16"],
+         "ms": times["K1-bf16"][0], "plain_ms": times["K1-bf16"][1],
+         **_bound("K1-bf16", times["K1-bf16"][0])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -83,8 +83,6 @@ def test_parsed_config_and_banner_match(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-mg_dtype", "bfloat16"], 12),
-    (["-mg_dtype", "mixed"], 12),
     (["-coarse_op", "galerkin_octant"], 14),
     (["-operator_impl", "xla"], 14),
     (["-ksp_type", "fgmres"], 14),

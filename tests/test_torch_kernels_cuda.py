@@ -6,7 +6,10 @@ on a GPU machine with
 running only the port need not have).
 
 Tolerance: rtol 2e-5, atol 1e-5 of max|ref| (the JAX package's bar for
-its Pallas kernels, tests/test_blocked.py).
+its Pallas kernels, tests/test_blocked.py).  K1's bf16-storage build:
+|got - ref| <= 2^-7 |ref| + 1e-5 max|ref|, both computing in f32 from the
+same bf16 inputs and rounding once, so at most a rounding that falls the
+other way differs (a bf16 ulp is 2^-7 relative at most).
 """
 
 import numpy as np
@@ -20,7 +23,9 @@ from topopt_in_petsc_tpu_torch.models.elements import (
 )
 from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
     HEX_OPERATOR,
+    HEX_OPERATOR_BF16,
     hex_operator,
+    hex_operator_grid,
     mask0,
 )
 from topopt_in_petsc_tpu_torch.ops.hex_operator import (
@@ -127,6 +132,62 @@ def test_k1_k2_repeat_bitwise(dev, nn):
     assert torch.equal(quadform(un, KE), quadform(un, KE))
 
 
+# -- K1's bf16-storage build ----------------------------------------------- #
+
+def _bf16_case(nn, dev):
+    KE, u, E = _case(nn, dev)
+    return KE, u.to(torch.bfloat16), E.to(torch.bfloat16)
+
+
+def _close_bf16(got, ref):
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    bad = (got - ref).abs() > 2.0**-7 * ref.abs() + 1e-5 * scale
+    assert not bool(bad.any()), f"{int(bad.sum())} values off"
+
+
+@pytest.mark.parametrize("mask_x0", [False, True])
+@pytest.mark.parametrize("nn", SHAPES)
+def test_k1_bf16_matches_plain(dev, nn, mask_x0):
+    KE, u, E = _bf16_case(nn, dev)
+    before = HEX_OPERATOR_BF16.launches, HEX_OPERATOR.launches
+    got = hex_operator(u, E, KE, mask_x0)
+    assert (HEX_OPERATOR_BF16.launches, HEX_OPERATOR.launches) == \
+        (before[0] + 1, before[1])
+    ref = _plain_k1(u.float(), E.float(), KE, mask_x0).to(torch.bfloat16)
+    _close_bf16(got, ref)
+    # the plain version on CPU tensors launches nothing
+    cpu = hex_operator(u.cpu(), E.cpu(), KE, mask_x0)
+    assert HEX_OPERATOR_BF16.launches == before[0] + 1
+    _close_bf16(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("nn", [(13, 11, 37), (65, 33, 33)])
+def test_k1_bf16_repeat_bitwise(dev, nn):
+    KE, u, E = _bf16_case(nn, dev)
+    for mask_x0 in (False, True):
+        assert torch.equal(hex_operator(u, E, KE, mask_x0),
+                           hex_operator(u, E, KE, mask_x0))
+
+
+def test_k1_bf16_without_reflection_symmetry(dev):
+    KE, u, E = _bf16_case((13, 11, 37), dev)
+    A = np.random.default_rng(5).normal(size=(24, 24))
+    KEn = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                               dtype=np.float32)
+    _close_bf16(hex_operator(u, E, KEn, True),
+                _plain_k1(u.float(), E.float(), KEn, True).to(torch.bfloat16))
+
+
+def test_k1_grid_queries_tell_levels_apart(dev):
+    levels = [(n,) * 3 for n in (257, 129, 65, 33, 17)]
+    for dtype in (torch.float32, torch.bfloat16):
+        grids = [hex_operator_grid(nn, dtype) for nn in levels]
+        assert len(set(grids)) == len(levels)
+
+
 # kernel, its wrapper, dof, element matrix of a grid
 NODAL = {
     "K3": (HELMHOLTZ, helmholtz, 1,
@@ -201,6 +262,8 @@ def test_wrappers_refuse_bad_tensors(dev):
         hex_operator(u.double(), E, KE, True)
     with pytest.raises(ValueError):
         hex_operator(u, E[:-1], KE, True)
+    with pytest.raises(ValueError):  # storage types differ
+        hex_operator(u.to(torch.bfloat16), E, KE, True)
     with pytest.raises(ValueError):
         quadform(u.permute(1, 2, 3, 0), KE)  # not contiguous
     KE32 = np.ascontiguousarray(KE, dtype=np.float32)
@@ -210,6 +273,18 @@ def test_wrappers_refuse_bad_tensors(dev):
         nodal_hex(u.permute(1, 2, 3, 0).contiguous(), E.double(), KE32)
     with pytest.raises(ValueError):
         helmholtz(u[:1].permute(1, 2, 3, 0).contiguous(), E, KE32)
+
+
+def test_nodal_hex_widens_bf16(dev):
+    """A bf16 u (the nodal bf16 V-cycle) goes through K4 widened to f32,
+    with the f32 coefficient, and comes back rounded to bf16."""
+    KE, u, E = _nodal_case("K4", (13, 11, 37), dev)
+    ub = u.to(torch.bfloat16)
+    before = NODAL_HEX.launches
+    got = nodal_hex(ub, E, KE)
+    assert NODAL_HEX.launches == before + 1
+    ref = apply_hex_operator(ub.float(), E, torch.as_tensor(KE, device=dev))
+    _close_bf16(got, ref.to(torch.bfloat16))
 
 
 # -- the fused step's CUDA graphs ------------------------------------------ #
@@ -234,6 +309,39 @@ def test_fused_step_graph_replay_equals_eager(dev):
             step(state, itr)
         torch.cuda.synchronize()
         assert (step.graphs is not None) == graphs
+        runs.append(state)
+    got, ref = runs
+    assert int(got.solver_iters) == int(ref.solver_iters)
+    for f in ("x", "xPhys", "L", "U", "fx", "gx", "ch", "mnd"):
+        torch.testing.assert_close(getattr(got, f), getattr(ref, f),
+                                   rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(mg_dtype="bfloat16"), dict(mg_dtype="mixed"),
+    dict(mg_dtype="bfloat16", mg_fine_post=1),
+    dict(mg_dtype="bfloat16", operator_impl="pallas"),
+])
+def test_fused_bf16_graph_replay_equals_eager(dev, extra):
+    """The reduced-precision V-cycle's fused step: its bf16 carry and
+    level tensors are captured like the f32 ones, and the replay gives the
+    eager step's state."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.parallel.fused_step import (
+        make_fused_step,
+    )
+
+    runs = []
+    for graphs in (True, False):
+        step, state = make_fused_step(TopOptConfig(**FUSED, **extra),
+                                      graphs=graphs)
+        before = HEX_OPERATOR_BF16.launches
+        for itr in range(1, 6):
+            step(state, itr)
+        torch.cuda.synchronize()
+        assert (step.graphs is not None) == graphs
+        if extra.get("operator_impl") != "pallas":
+            assert HEX_OPERATOR_BF16.launches > before
         runs.append(state)
     got, ref = runs
     assert int(got.solver_iters) == int(ref.solver_iters)

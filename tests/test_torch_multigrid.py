@@ -97,6 +97,3 @@ def test_options_outside_the_port_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         GeometricMultigrid(grids, KEs, masks, 3, device=CPU,
                            coarse_op="galerkin_octant")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GeometricMultigrid(grids, KEs, masks, 3, device=CPU,
-                           precond_dtype=torch.bfloat16)

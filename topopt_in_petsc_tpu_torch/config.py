@@ -17,6 +17,16 @@ from typing import Sequence
 
 import torch
 
+# Dof from which "-mg_dtype same" resolves to a bf16 V-cycle: where the
+# f32 run's peak device memory would pass 90% of an 80 GB card.  Peaks of
+# one split-driver iteration of the 513^3 recipe (-nlvls 6
+# -smooth_sweeps 2, 405,017,091 dof), torch.cuda.max_memory_allocated,
+# NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 18): f32
+# 34,519,015,936 B (85.2 B per dof), bf16 33,100,128,768 B (81.7 B per
+# dof).  So f32 fits at 513^3, and the threshold is about 8.45e8 dof.
+F32_PEAK_BYTES_PER_DOF = 34_519_015_936 / 405_017_091
+MG_BF16_DOF = 0.9 * 80e9 / F32_PEAK_BYTES_PER_DOF
+
 
 @dataclasses.dataclass
 class TopOptConfig:
@@ -81,13 +91,16 @@ class TopOptConfig:
     ksp_monitor: bool = False  # per-chunk residuals; no chunks here
     park_design: int = -1
     tail_split: bool = False
-    mg_fine_post: int = 0  # bf16 V-cycle only (ROADMAP item 12)
+    # f32 Chebyshev steps after a V-cycle whose fine level is bf16
+    mg_fine_post: int = 0
     coarse_op: str = "rediscretize"  # "galerkin_octant": ROADMAP item 14
     coarse_rtol: float = 1.0e-8
     coarse_maxit: int = 30
     smooth_sweeps: int = 4  # Chebyshev degree per pre/post smooth
     cheby_upper: float = 1.1  # smooth band = [lower*lmax, upper*lmax]
-    cheby_lower: float = -1.0  # -1 = auto (0.06 for the f32 V-cycle)
+    # -1 = auto: 0.25 for a reduced-precision V-cycle of degree <= 2,
+    # else 0.06
+    cheby_lower: float = -1.0
 
     # --- PDE filter solver (PDEFilter.cc:269-380; opt/pde_filter.py) ---
     pde_nlvls: int = 3
@@ -100,7 +113,10 @@ class TopOptConfig:
     # "pallas" selects the nodal layout with the hand-written nodal
     # kernel (K4) at every MG level; "xla" is ROADMAP item 14
     operator_impl: str = "auto"
-    mg_dtype: str = "same"  # "bfloat16"/"mixed": ROADMAP item 12
+    # V-cycle storage: "same" (f32; bf16 by `resolve_mg_mode` above its
+    # dof threshold), "bfloat16" (every level) or "mixed" (f32 fine level,
+    # bf16 coarse levels; the resident solver only)
+    mg_dtype: str = "same"
     precise_dots: bool = True  # f64 accumulation of dots and sums
     mesh_shape: tuple = (1, 1, 1)  # multi-device: ROADMAP item 15
     fused: bool = False  # the fused step (parallel/fused_step.py)
@@ -142,8 +158,13 @@ class TopOptConfig:
         return 0
 
     def resolve_mg_mode(self, ndof: int) -> str:
-        """The V-cycle stores f32 at every level."""
-        return "same"
+        """Resolved V-cycle storage: "same" (f32), "bfloat16" or "mixed".
+        An explicit -mg_dtype wins; "same" turns to "bfloat16" from
+        `MG_BF16_DOF` dof on, where the f32 solve no longer fits the card
+        (the JAX package's rule, its threshold re-derived for an H100)."""
+        if self.mg_dtype != "same":
+            return self.mg_dtype
+        return "bfloat16" if ndof >= MG_BF16_DOF else "same"
 
     def resolve_mg_bf16(self, ndof: int) -> bool:
         return self.resolve_mg_mode(ndof) != "same"
@@ -153,9 +174,13 @@ class TopOptConfig:
         return False
 
     def resolve_cheby_lower(self, ndof: int) -> float:
-        """Explicit value wins; auto is 0.06 for the f32 V-cycle."""
+        """Explicit value wins; auto narrows the smoothing band to 0.25
+        for a reduced-precision V-cycle of degree <= 2 (the giga-dof
+        recipe), else 0.06."""
         if self.cheby_lower >= 0:
             return self.cheby_lower
+        if self.resolve_mg_mode(ndof) != "same" and self.smooth_sweeps <= 2:
+            return 0.25
         return 0.06
 
     @property
@@ -237,8 +262,6 @@ class TopOptConfig:
         """(flag, requested?, ROADMAP item) for every code path the port
         does not carry yet."""
         return (
-            ("-mg_dtype bfloat16|mixed", self.mg_dtype != "same", 12),
-            ("-mg_fine_post > 0", self.mg_fine_post > 0, 12),
             ("-operator_impl xla",
              self.operator_impl not in ("auto", "blocked", "pallas"), 14),
             ("-ksp_type fgmres", self.ksp_type == "fgmres", 14),

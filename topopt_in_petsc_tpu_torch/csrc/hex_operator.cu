@@ -1,9 +1,13 @@
-// K1: matrix-free Hex8 elasticity operator  out = K(E) u  (dof = 3, f32).
+// K1: matrix-free Hex8 elasticity operator  out = K(E) u  (dof = 3), in
+// two builds: f32 storage (hex_operator_f32) and bf16 storage
+// (hex_operator_bf16: u, E and out bf16, every operation f32).
 //
 // Replaces the TPU kernel topopt_in_petsc_tpu/ops/blocked_hex.py::_kernel
-// (the resident-layout Pallas kernel built in BlockedHexOperator.__init__).
-// Plain PyTorch version: ops/hex_operator.py::apply_hex_operator followed
-// by BlockedHexOperator.mask0 when mask_x0 is set.
+// (the resident-layout Pallas kernel built in BlockedHexOperator.__init__,
+// with dtype float32 or bfloat16).  Plain PyTorch version:
+// ops/hex_operator.py::apply_hex_operator followed by
+// BlockedHexOperator.mask0 when mask_x0 is set, on the inputs widened to
+// f32 and, for the bf16 build, with the result rounded to bf16.
 //
 //   out[n] = sum over the (up to) 8 elements e with node n as corner a of
 //            E_e * (u_e @ KE)[3a : 3a + 3]
@@ -13,10 +17,12 @@
 // cantilever's clamped wall, LinearElasticity.cc:143-156).
 //
 // What bounds it on an H100, at 257^3 nodes: 475 MB of compulsory
-// traffic (u and E read, out written), 0.142 ms at 3.35 TB/s.  The
-// operations are fewer: the reflection product below, the E scaling and
-// the node sums come to 5.2 GFLOP, 0.077 ms at the 67 TFLOP/s f32 peak
-// (576 FMAs per element would be 19.3 GFLOP, 0.289 ms; ops/roofline.py).
+// traffic in f32 (u and E read, out written), 0.142 ms at 3.35 TB/s, and
+// half of it in bf16, 0.071 ms.  The operations are fewer: the reflection
+// product below, the E scaling and the node sums come to 5.2 GFLOP, 0.077
+// ms at the 67 TFLOP/s f32 peak (576 FMAs per element would be 19.3
+// GFLOP, 0.289 ms; ops/roofline.py), so the bf16 build is bound by its
+// operations.
 //
 // Design (hex_tile.cuh).  A block owns a 6 x 33 node tile in y-z (so the
 // 2^k + 1 extents of the multigrid levels fill whole tiles in z) and a
@@ -51,8 +57,17 @@
 // design: it put the 257^3 compliance 11.6% off the golden, because the
 // solver's smooth Krylov vectors cancel 4-5 digits in the node sums, and
 // the reflection product was faster anyway (PERF.md).
+//
+// The bf16 build is the same body on bf16 storage (hex_tile.cuh): each
+// staged value widened to f32 once, the same products and node-sum order,
+// out rounded to nearest even once; deterministic like the f32 build.
+// Its planes are loaded into registers a step ahead instead of by
+// cp.async, whose 4-byte copies a bf16 row of either parity does not fit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "hex_tile.cuh"
 
@@ -67,7 +82,8 @@ constexpr int TY = 6, TZ = 33, NT = 256;
 constexpr int kSmem = Tile<TY, TZ, NT, 3>::kBytes;
 
 // kSym: the element product by the reflection blocks, else 576 FMAs
-// (hex_tile.cuh)
+// (hex_tile.cuh).  The two builds are two kernels, so that a profile
+// tells them apart by name.
 template <bool kSym>
 __global__ void __launch_bounds__(NT, 3)
 hex_operator_kernel(const float* __restrict__ u, const float* __restrict__ E,
@@ -78,58 +94,100 @@ hex_operator_kernel(const float* __restrict__ u, const float* __restrict__ E,
                                             mask_x0);
 }
 
-// Launches the kernel on an nx x ny x nz grid, or only returns its grid
-// when ke is null.
 template <bool kSym>
-dim3 launch_tile(const float* u, const float* E, float* out,
-                 const KEParams* ke, int nx, int ny, int nz, int mask_x0,
-                 cudaStream_t stream) {
+__global__ void __launch_bounds__(NT, 3)
+hex_operator_bf16_kernel(const __nv_bfloat16* __restrict__ u,
+                         const __nv_bfloat16* __restrict__ E,
+                         __nv_bfloat16* __restrict__ out,
+                         const __grid_constant__ KEParams ke, int nx,
+                         int ny, int nz, int xc, int mask_x0) {
+  tile_operator<TY, TZ, NT, 3, false, kSym>(u, E, out, ke, nx, ny, nz, xc,
+                                            mask_x0);
+}
+
+// Launches the kernel of storage type T on an nx x ny x nz grid, or only
+// returns its grid when ke is null.
+template <class T, bool kSym>
+dim3 launch_tile(const T* u, const T* E, T* out, const KEParams* ke, int nx,
+                 int ny, int nz, int mask_x0, cudaStream_t stream) {
   int xc;
-  const dim3 grid =
-      tile_grid<hex_operator_kernel<kSym>, TY, TZ, NT>(nx, ny, nz, kSmem, &xc);
-  if (ke)
-    hex_operator_kernel<kSym><<<grid, NT, kSmem, stream>>>(
-        u, E, out, *ke, nx, ny, nz, xc, mask_x0);
-  return grid;
+  if constexpr (std::is_same_v<T, float>) {
+    const dim3 grid = tile_grid<hex_operator_kernel<kSym>, TY, TZ, NT>(
+        nx, ny, nz, kSmem, &xc);
+    if (ke)
+      hex_operator_kernel<kSym><<<grid, NT, kSmem, stream>>>(
+          u, E, out, *ke, nx, ny, nz, xc, mask_x0);
+    return grid;
+  } else {
+    const dim3 grid = tile_grid<hex_operator_bf16_kernel<kSym>, TY, TZ, NT>(
+        nx, ny, nz, kSmem, &xc);
+    if (ke)
+      hex_operator_bf16_kernel<kSym><<<grid, NT, kSmem, stream>>>(
+          u, E, out, *ke, nx, ny, nz, xc, mask_x0);
+    return grid;
+  }
+}
+
+template <class T>
+int launch(const void* u, const void* E, void* out, const void* ke_host,
+           int nx, int ny, int nz, int mask_x0, void* stream) {
+  if (nx < 2 || ny < 2 || nz < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  KEParams ke;
+  const bool sym = element_params(static_cast<const float*>(ke_host), &ke);
+  const auto* pu = static_cast<const T*>(u);
+  const auto* pE = static_cast<const T*>(E);
+  auto* po = static_cast<T*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (sym)
+    launch_tile<T, true>(pu, pE, po, &ke, nx, ny, nz, mask_x0, st);
+  else
+    launch_tile<T, false>(pu, pE, po, &ke, nx, ny, nz, mask_x0, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int grid_of(int nx, int ny, int nz, int* grid3) {
+  const dim3 g = launch_tile<T, true>(nullptr, nullptr, nullptr, nullptr, nx,
+                                      ny, nz, 0, nullptr);
+  grid3[0] = g.x;
+  grid3[1] = g.y;
+  grid3[2] = g.z;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// u, E, out: device pointers; ke_host: host pointer to the row-major
-// (24, 24) f32 element matrix; stream: a cudaStream_t.  The element
-// product is by the reflection blocks if KE has the symmetry, else 576
-// FMAs.  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// u, E, out: device pointers, f32 for hex_operator_f32 and bf16 for
+// hex_operator_bf16; ke_host: host pointer to the row-major (24, 24) f32
+// element matrix; stream: a cudaStream_t.  The element product is by the
+// reflection blocks if KE has the symmetry, else 576 FMAs.  Each launches
+// on `stream`, allocates nothing and returns cudaGetLastError().
 int hex_operator_f32(const void* u, const void* E, void* out,
                      const void* ke_host, int nx, int ny, int nz,
                      int mask_x0, void* stream) {
-  if (nx < 2 || ny < 2 || nz < 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  KEParams ke;
-  const bool sym = element_params(static_cast<const float*>(ke_host), &ke);
-  const auto* pu = static_cast<const float*>(u);
-  const auto* pE = static_cast<const float*>(E);
-  auto* po = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (sym)
-    launch_tile<true>(pu, pE, po, &ke, nx, ny, nz, mask_x0, st);
-  else
-    launch_tile<false>(pu, pE, po, &ke, nx, ny, nz, mask_x0, st);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(u, E, out, ke_host, nx, ny, nz, mask_x0, stream);
 }
 
-// The launch grid of hex_operator_f32 on an nx x ny x nz grid for a KE
-// with the reflection symmetry, into grid3[3] (z tiles, y tiles, x
-// chunks): a profile tells the grid levels apart by it.
+int hex_operator_bf16(const void* u, const void* E, void* out,
+                      const void* ke_host, int nx, int ny, int nz,
+                      int mask_x0, void* stream) {
+  return launch<__nv_bfloat16>(u, E, out, ke_host, nx, ny, nz, mask_x0,
+                               stream);
+}
+
+// The launch grids of hex_operator_f32 and hex_operator_bf16 on an nx x
+// ny x nz grid for a KE with the reflection symmetry, into grid3[3] (z
+// tiles, y tiles, x chunks): a profile tells the grid levels apart by
+// them.
 int hex_operator_grid(int nx, int ny, int nz, int* grid3) {
-  const dim3 g =
-      launch_tile<true>(nullptr, nullptr, nullptr, nullptr, nx, ny, nz, 0, 0);
-  grid3[0] = g.x;
-  grid3[1] = g.y;
-  grid3[2] = g.z;
-  return 0;
+  return grid_of<float>(nx, ny, nz, grid3);
+}
+
+int hex_operator_bf16_grid(int nx, int ny, int nz, int* grid3) {
+  return grid_of<__nv_bfloat16>(nx, ny, nz, grid3);
 }
 
 const char* topopt_cuda_error_string(int err) {

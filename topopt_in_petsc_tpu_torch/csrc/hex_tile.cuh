@@ -45,12 +45,26 @@
 //   its Laplacian modes on a fine grid) stays in Q_0 instead of being
 //   rebuilt from larger terms.  Exact in real arithmetic for any
 //   axis-aligned brick; f32-rounded like the generic product.
+//
+// Storage.  u, E and out are f32, or bf16 (K1's bf16-storage build, the
+// reduced-precision V-cycle's levels).  Shared memory and every operation
+// stay f32 either way: a bf16 plane is widened once, as it is staged, and
+// out is rounded to bf16 once (round to nearest even), so the bf16 build
+// computes what the f32 build computes on the widened inputs.  cp.async
+// copies 4, 8 or 16 bytes, and a bf16 z-row of a 2^k + 1 extent starts at
+// either parity, so bf16 planes are not staged by cp.async: each thread
+// loads its words of the plane kStages + 1 steps ahead into registers at
+// the top of a step, and stores them widened into the plane's f32 slot
+// after the step's element products, which hide the loads' latency.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace hex_tile {
 
@@ -295,6 +309,20 @@ __device__ __forceinline__ float element_quadform(const float (&ue)[24],
   }
 }
 
+// -- storage types --------------------------------------------------------- //
+
+// a stored value widened to f32: exact for bf16, whose bits are the upper
+// half of an f32's
+__device__ __forceinline__ float widen_bits(unsigned short bits) {
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+// an f32 result in the storage type (bf16: round to nearest even)
+template <class T>
+__device__ __forceinline__ T to_storage(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+
 // -- cp.async staging ------------------------------------------------------ //
 
 // 4-byte copy global -> shared; `valid` false writes a zero (src-size 0,
@@ -379,8 +407,9 @@ struct Tile {
 // The node fields u and out are node-major (nx, ny, nz, DOF) if
 // kNodeMajor, else component-major (DOF, nx, ny, nz); mask_x0 zeroes the
 // x == 0 node plane.  kSym: the element product by the reflection blocks,
-// else (8 DOF)^2 FMAs.  Called from a __global__ kernel of NT threads
-// with Tile<TY, TZ, NT, DOF>::kBytes of dynamic shared memory.
+// else (8 DOF)^2 FMAs.  T, the storage type of u, E and out: float or
+// __nv_bfloat16.  Called from a __global__ kernel of NT threads with
+// Tile<TY, TZ, NT, DOF>::kBytes of dynamic shared memory.
 //
 // For each element plane the block forms f_e = E_e * (u_e @ KE) for the
 // (TY+1) x (TZ+1) elements that touch the tile, one element per thread,
@@ -388,14 +417,18 @@ struct Tile {
 // the previous element plane's corners 1, 2, 5, 6 (kept in registers from
 // the last step), then this plane's 0, 3, 4, 7.  No atomics: two launches
 // give bitwise-equal output.
-template <int TY, int TZ, int NT, int DOF, bool kNodeMajor, bool kSym>
+template <int TY, int TZ, int NT, int DOF, bool kNodeMajor, bool kSym,
+          class T>
 __device__ __forceinline__ void tile_operator(
-    const float* __restrict__ u, const float* __restrict__ E,
-    float* __restrict__ out, const ElemParams<DOF>& ke, int nx, int ny,
-    int nz, int xc, int mask_x0) {
-  using T = Tile<TY, TZ, NT, DOF>;
-  using P = typename T::P;
-  constexpr int FS = T::FS;
+    const T* __restrict__ u, const T* __restrict__ E, T* __restrict__ out,
+    const ElemParams<DOF>& ke, int nx, int ny, int nz, int xc,
+    int mask_x0) {
+  static_assert(std::is_same_v<T, float> || std::is_same_v<T, __nv_bfloat16>,
+                "f32 or bf16 storage");
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  using TL = Tile<TY, TZ, NT, DOF>;
+  using P = typename TL::P;
+  constexpr int FS = TL::FS;
   // staged words of a node plane: the padded slots (component-major, the
   // padding zero-filled) or the nodes' words in device order (node-major)
   constexpr int NS = kNodeMajor ? P::NP * DOF : P::PB;
@@ -403,8 +436,8 @@ __device__ __forceinline__ void tile_operator(
   constexpr int NEQ = (P::NE + NT - 1) / NT;  // staged elements per thread
   extern __shared__ float4 smem[];
   float* su = reinterpret_cast<float*>(smem);
-  float* sE = su + T::kNodes;
-  float* sf = sE + T::kElems;
+  float* sE = su + TL::kNodes;
+  float* sf = sE + TL::kElems;
 
   const int tid = threadIdx.x;
   const int z0 = blockIdx.x * TZ, y0 = blockIdx.y * TY;
@@ -451,29 +484,68 @@ __device__ __forceinline__ void tile_operator(
 
   // node plane x and element plane x into ring slot x % kRing, each only
   // if the block uses it (node planes up to e_hi + 1, element planes up
-  // to e_hi); one copy group per call
+  // to e_hi).  f32: one copy group per call.  bf16: the plane's words
+  // into registers, which `land` stores widened into the slot.
+  unsigned short ru[kF32 ? 1 : NQ], re[kF32 ? 1 : NEQ];
+  int pending = -1;  // the plane whose bf16 words are in ru and re
   auto fetch = [&](int x) {
-    if (x <= e_hi + 1) {
-      float* dst = su + (x % kRing) * P::PB;
-      const float* src = u + x * uplane;
+    if constexpr (kF32) {
+      if (x <= e_hi + 1) {
+        float* dst = su + (x % kRing) * P::PB;
+        const float* src = u + x * uplane;
+#pragma unroll
+        for (int m = 0; m < NQ; ++m)
+          if (tid + m * NT < NS)
+            cp_async4(dst + sdst[m], src + max(goff[m], 0), goff[m] >= 0);
+      }
+      if (x <= e_hi) {
+        float* dst = sE + (x % kRing) * P::ES;
+        const float* src = E + x * eplane;
+#pragma unroll
+        for (int m = 0; m < NEQ; ++m)
+          if (tid + m * NT < P::NE)
+            cp_async4(dst + tid + m * NT, src + max(eoff[m], 0),
+                      eoff[m] >= 0);
+      }
+      cp_async_commit();
+    } else {
+      pending = x;
+      const auto* src = reinterpret_cast<const unsigned short*>(u) +
+                        static_cast<long>(x) * uplane;
+      const auto* esrc = reinterpret_cast<const unsigned short*>(E) +
+                         static_cast<long>(x) * eplane;
 #pragma unroll
       for (int m = 0; m < NQ; ++m)
-        if (tid + m * NT < NS)
-          cp_async4(dst + sdst[m], src + max(goff[m], 0), goff[m] >= 0);
-    }
-    if (x <= e_hi) {
-      float* dst = sE + (x % kRing) * P::ES;
-      const float* src = E + x * eplane;
+        ru[m] = x <= e_hi + 1 && goff[m] >= 0 ? __ldg(src + goff[m]) : 0;
 #pragma unroll
       for (int m = 0; m < NEQ; ++m)
-        if (tid + m * NT < P::NE)
-          cp_async4(dst + tid + m * NT, src + max(eoff[m], 0), eoff[m] >= 0);
+        re[m] = x <= e_hi && eoff[m] >= 0 ? __ldg(esrc + eoff[m]) : 0;
     }
-    cp_async_commit();
   };
-  // planes e_lo .. e_lo + kStages in flight: the group of plane p is the
-  // (p - e_lo)-th
-  for (int p = 0; p <= kStages; ++p) fetch(e_lo + p);
+  // bf16: the pending plane's words, widened, into its ring slot (zeros
+  // outside the grid and in the padding, as cp.async's zero fill)
+  auto land = [&]() {
+    if constexpr (!kF32) {
+      if (pending <= e_hi + 1) {
+        float* dst = su + (pending % kRing) * P::PB;
+#pragma unroll
+        for (int m = 0; m < NQ; ++m)
+          if (tid + m * NT < NS) dst[sdst[m]] = widen_bits(ru[m]);
+      }
+      if (pending <= e_hi) {
+        float* dst = sE + (pending % kRing) * P::ES;
+#pragma unroll
+        for (int m = 0; m < NEQ; ++m)
+          if (tid + m * NT < P::NE) dst[tid + m * NT] = widen_bits(re[m]);
+      }
+    }
+  };
+  // planes e_lo .. e_lo + kStages in flight (f32: the group of plane p is
+  // the (p - e_lo)-th; bf16: stored before the first step's barrier)
+  for (int p = 0; p <= kStages; ++p) {
+    fetch(e_lo + p);
+    land();
+  }
 
   // the owned node (y0+jj, z0+kk): corner a's element is row
   // base - oy(a) * EZ - oz(a) of an element plane
@@ -494,7 +566,7 @@ __device__ __forceinline__ void tile_operator(
   for (int ex = e_lo; ex <= e_hi; ++ex) {
     // node planes ex and ex+1 (and element plane ex) have landed: the
     // kStages - 1 newest groups may still be in flight
-    cp_async_wait<kStages - 1>();
+    if constexpr (kF32) cp_async_wait<kStages - 1>();
     __syncthreads();
     // into the slot of plane ex-1, which no product reads any more
     fetch(ex + kStages + 1);
@@ -511,6 +583,9 @@ __device__ __forceinline__ void tile_operator(
 #pragma unroll
       for (int c = 0; c < 8 * DOF; ++c) sf[c * FS + r] = e * f[c];
     }
+    // bf16: plane ex + kStages + 1 into the slot of plane ex-1, read from
+    // step ex + kStages on, after this step's barrier
+    land();
     __syncthreads();
 
     // node sums: node plane ex completes, node plane ex+1 starts
@@ -533,13 +608,15 @@ __device__ __forceinline__ void tile_operator(
     if (owner && ex >= xa) {
       const bool zero = mask_x0 && ex == 0;
 #pragma unroll
-      for (int i = 0; i < DOF; ++i) out[oword(ex, i)] = zero ? 0.f : cur[i];
+      for (int i = 0; i < DOF; ++i)
+        out[oword(ex, i)] = to_storage<T>(zero ? 0.f : cur[i]);
     }
   }
   // the last node plane of the grid has no element plane after it
   if (owner && e_hi + 1 < xb)
 #pragma unroll
-    for (int i = 0; i < DOF; ++i) out[oword(e_hi + 1, i)] = nxt[i];
+    for (int i = 0; i < DOF; ++i)
+      out[oword(e_hi + 1, i)] = to_storage<T>(nxt[i]);
 }
 
 // The launch grid of a tile kernel (TY x TZ nodes, NT threads, `smem`

@@ -14,6 +14,16 @@ on two paths of the JAX package's `models/elasticity.py`:
 On both, the compliance and its sensitivity come from kernel K2
 (ops/quadform.py).
 
+`-mg_dtype bfloat16` stores the V-cycle in bf16 on either path (on the
+resident one through K1's bf16-storage build, with `-mg_fine_post` f32
+refinement steps); `mixed` (f32 fine level, bf16 coarse levels) exists on
+the resident path only, and the nodal path runs it f32 with the JAX
+package's warning.  The outer Krylov is f32 on both: the resident solver's
+warm start, right-hand side and solution go through its f32 operator
+`op32`.  (The JAX package's resident split solve converts them through
+`ops[0]`, which under `-mg_dtype bfloat16` is the bf16 V-cycle operator,
+and fails with a dtype error: ROADMAP queue 3.)
+
 The state solve has two forms: `solve_state`, one eager call (the split
 driver), and `solve_start` then `solve_advance` in segments of predicated
 iterations (the fused step, parallel/fused_step.py), the counterpart of
@@ -22,6 +32,7 @@ the JAX package's `_solve_impl`.
 
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -99,20 +110,36 @@ class LinearElasticity:
             coarse_maxit=cfg.coarse_maxit,
             precise_dots=cfg.precise_dots,
         )
+        mode = cfg.resolve_mg_mode(cfg.ndof)
         self.solver = self.mg = None
         if cfg.operator_impl != "pallas":
-            self.solver = BlockedElasticityMG(grids, KEs, **mg_args)
-            # the resident load vector
-            self._b = self.solver.ops[0].cantilever_rhs(dtype=torch.float32)
+            self.solver = BlockedElasticityMG(
+                grids, KEs, **mg_args,
+                mg_dtype={"same": None, "bfloat16": torch.bfloat16,
+                          "mixed": "mixed"}[mode],
+                fine_post_smooth=cfg.mg_fine_post,
+            )
+            # the resident load vector, f32 like every outer vector
+            self._b = self.solver.op32.cantilever_rhs(dtype=torch.float32)
             return
+        if mode == "mixed":
+            print(
+                "warning: -mg_dtype mixed needs the blocked solver "
+                f"(operator_impl={cfg.operator_impl}); running a pure-f32 "
+                "V-cycle instead — the memory lever is OFF on this path",
+                file=sys.stderr,
+            )
         # nodal path: per-level masks by node subsampling (coarse nodes
         # coincide with fine nodes at even indices)
         N, RHS = build_cantilever_bc(self.grid)
         self.RHS = torch.as_tensor(RHS, dtype=torch.float32,
                                    device=self.device)
         masks = [N[:: 2**l, :: 2**l, :: 2**l] for l in range(cfg.nlvls)]
-        self.mg = GeometricMultigrid(grids, KEs, masks, dof=3,
-                                     coarse_op=cfg.coarse_op, **mg_args)
+        self.mg = GeometricMultigrid(
+            grids, KEs, masks, dof=3, coarse_op=cfg.coarse_op,
+            precond_dtype=torch.bfloat16 if mode == "bfloat16" else None,
+            **mg_args,
+        )
 
     # -- SIMP interpolation (LinearElasticity.cc:519) ------------------ #
 
@@ -131,7 +158,7 @@ class LinearElasticity:
         E = self.simp(xPhys.to(self.dtype))
         if self.mg is not None:
             return self._solve_nodal(E, u0)
-        op0 = self.solver.ops[0]
+        op0 = self.solver.op32
         if u0 is None:
             x0 = torch.zeros_like(self._b)
         else:
@@ -159,7 +186,7 @@ class LinearElasticity:
                 self.mg.preconditioner(levels, predicated=True),
                 precise_dots=self.cfg.precise_dots,
             )
-        op0 = self.solver.ops[0]
+        op0 = self.solver.op32
         return self.solver.start(E, self._b, op0.mask0(op0.to_blocked(u0)))
 
     def solve_advance(self, levels: list, state: PCGState,
@@ -183,7 +210,7 @@ class LinearElasticity:
         """The carry's x as the nodal (nx, ny, nz, 3) field."""
         if self.mg is not None:
             return x
-        return self.solver.ops[0].from_blocked(x, self.dtype)
+        return self.solver.op32.from_blocked(x, self.dtype)
 
     def _nodal_A(self, levels):
         return lambda v: self.mg.apply(0, levels[0]["coef"], v)

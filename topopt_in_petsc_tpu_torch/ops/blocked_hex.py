@@ -1,10 +1,12 @@
 """The resident operator: solver vectors live in kernel K1's layout for the
 whole solve.
 
-Layout: a vector is a contiguous ``(3, nx, ny, nz)`` f32 tensor (component
+Layout: a vector is a contiguous ``(3, nx, ny, nz)`` tensor (component
 major, z fastest) and the element coefficient a contiguous
-``(nx-1, ny-1, nz-1)`` f32 tensor.  Every solver operation (axpys, Jacobi
-scaling, Chebyshev recurrences, dots, MG transfers) works on that layout;
+``(nx-1, ny-1, nz-1)`` tensor, both in the operator's storage dtype: f32,
+or bf16 on the levels of a reduced-precision V-cycle.  Every solver
+operation (axpys, Jacobi scaling, Chebyshev recurrences, dots, MG
+transfers) works on that layout;
 the nodal ``(nx, ny, nz, 3)`` form appears only at solve entry and exit.
 No position of the layout is padding, so every position is owned and the
 ownership-weighted reductions of the JAX package reduce to plain sums.
@@ -15,8 +17,11 @@ LinearElasticity.cc:143-156), the line load is the edge (x = nx-1, z = 0)
 (`cantilever_rhs`, LinearElasticity.cc:158-171).
 
 Kernel K1 (csrc/hex_operator.cu) computes the free-BC operator, optionally
-with the x == 0 plane masked in the same pass (`apply`).  For CPU tensors
-the wrapper runs the plain version, `apply_hex_operator` then `mask0`.
+with the x == 0 plane masked in the same pass (`apply`), in two builds:
+f32 storage, and bf16 storage with every operation in f32 (the JAX
+package's `BlockedHexOperator(dtype=jnp.bfloat16)`).  For CPU tensors the
+wrapper runs the plain version, `apply_hex_operator` then `mask0` on the
+inputs widened to f32, the result rounded to the storage dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ from topopt_in_petsc_tpu_torch.ops.cuda_build import (
 from topopt_in_petsc_tpu_torch.ops.hex_operator import apply_hex_operator
 
 HEX_OPERATOR = CudaKernel("hex_operator_f32")
+HEX_OPERATOR_BF16 = CudaKernel("hex_operator_bf16")
+# the kernel of each storage dtype
+_BUILDS = {torch.float32: HEX_OPERATOR, torch.bfloat16: HEX_OPERATOR_BF16}
 
 
 def mask0(vb: torch.Tensor) -> torch.Tensor:
@@ -47,51 +55,63 @@ def hex_operator(
     vb: torch.Tensor, eb: torch.Tensor, KE: np.ndarray, mask_x0: bool
 ) -> torch.Tensor:
     """K1: ``K(E) v`` on the resident layout, with the x == 0 plane zeroed
-    when `mask_x0`.  vb: (3, nx, ny, nz) f32, eb: (nx-1, ny-1, nz-1) f32,
-    KE: the (24, 24) element matrix of this grid level."""
+    when `mask_x0`.  vb: (3, nx, ny, nz), eb: (nx-1, ny-1, nz-1), both f32
+    or both bf16 (the bf16-storage build: every operation in f32, the
+    result rounded to bf16 once); KE: the (24, 24) element matrix of this
+    grid level, f32 in either build."""
+    if vb.dtype not in _BUILDS:
+        raise ValueError(f"v: expected f32 or bf16, got {vb.dtype}")
     if vb.device.type == "cpu":
-        KEt = torch.as_tensor(np.asarray(KE), dtype=vb.dtype)
-        out = apply_hex_operator(vb.permute(1, 2, 3, 0), eb, KEt)
+        KEt = torch.as_tensor(np.asarray(KE), dtype=torch.float32)
+        out = apply_hex_operator(vb.permute(1, 2, 3, 0).float(), eb.float(),
+                                 KEt)
         out = out.permute(3, 0, 1, 2).contiguous()
-        return mask0(out) if mask_x0 else out
+        return (mask0(out) if mask_x0 else out).to(vb.dtype)
     _, nx, ny, nz = vb.shape
-    check_cuda_tensor(vb, "v", (3, nx, ny, nz), torch.float32)
-    check_cuda_tensor(eb, "E", (nx - 1, ny - 1, nz - 1), torch.float32)
+    check_cuda_tensor(vb, "v", (3, nx, ny, nz), vb.dtype)
+    check_cuda_tensor(eb, "E", (nx - 1, ny - 1, nz - 1), vb.dtype)
     if 3 * nx * ny * nz >= 2**31:
         raise ValueError(f"grid {(nx, ny, nz)} exceeds 32-bit indexing")
     ke = np.ascontiguousarray(KE, dtype=np.float32)
     if ke.shape != (24, 24):
         raise ValueError(f"KE: expected shape (24, 24), got {ke.shape}")
     out = torch.empty_like(vb)
-    HEX_OPERATOR(
+    _BUILDS[vb.dtype](
         vb.data_ptr(), eb.data_ptr(), out.data_ptr(), ke.ctypes.data,
         nx, ny, nz, int(mask_x0),
     )
     return out
 
 
-def hex_operator_grid(nn) -> Tuple[int, int, int]:
-    """The CUDA launch grid of `hex_operator` on an `nn` node grid: a
-    profiler's record of K1 tells the multigrid levels apart by it."""
-    return launch_grid("hex_operator_grid", nn)
+def hex_operator_grid(nn, dtype=torch.float32) -> Tuple[int, int, int]:
+    """The CUDA launch grid of `hex_operator` on an `nn` node grid for
+    storage `dtype`: a profiler's record of K1 tells the multigrid levels
+    apart by it."""
+    query = {torch.float32: "hex_operator_grid",
+             torch.bfloat16: "hex_operator_bf16_grid"}[dtype]
+    return launch_grid(query, nn)
 
 
 class BlockedHexOperator:
-    """Resident-layout matrix-free K(x) for one grid level."""
+    """Resident-layout matrix-free K(x) for one grid level, with vectors and
+    coefficient stored in `dtype` (f32 or bf16; K1 computes in f32)."""
 
     def __init__(self, nn: Tuple[int, int, int], KE: np.ndarray, *,
-                 device: torch.device):
+                 device: torch.device, dtype=torch.float32):
+        if dtype not in _BUILDS:
+            raise ValueError(f"storage dtype must be f32 or bf16: {dtype}")
         self.nn = tuple(nn)
         self.dof = 3
         self.device = torch.device(device)
+        self.dtype = dtype
         # KE goes to the kernel by value, as f32
         self.KE = np.ascontiguousarray(KE, dtype=np.float32)
 
     # -- layout conversion (solve entry/exit only) ---------------------- #
 
     def to_blocked(self, u: torch.Tensor) -> torch.Tensor:
-        """(nx, ny, nz, 3) -> (3, nx, ny, nz) f32."""
-        return u.to(torch.float32).permute(3, 0, 1, 2).contiguous()
+        """(nx, ny, nz, 3) -> (3, nx, ny, nz) in the storage dtype."""
+        return u.to(self.dtype).permute(3, 0, 1, 2).contiguous()
 
     def from_blocked(self, vb: torch.Tensor, dtype=None) -> torch.Tensor:
         """(3, nx, ny, nz) -> (nx, ny, nz, 3)."""
@@ -99,8 +119,9 @@ class BlockedHexOperator:
         return out if dtype is None else out.to(dtype)
 
     def prepare_coef(self, E: torch.Tensor) -> torch.Tensor:
-        """Element coefficient in the kernel's layout: contiguous f32."""
-        return E.to(torch.float32).contiguous()
+        """Element coefficient in the kernel's layout: contiguous, in the
+        storage dtype."""
+        return E.to(self.dtype).contiguous()
 
     # -- resident-layout operations ------------------------------------- #
 

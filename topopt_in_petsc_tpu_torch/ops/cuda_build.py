@@ -36,7 +36,9 @@ _I = ctypes.c_int
 # C signature of every entry point: (argtypes), all returning cudaError_t
 _SIGNATURES = {
     "hex_operator_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "hex_operator_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "hex_operator_grid": (_I, _I, _I, _P),
+    "hex_operator_bf16_grid": (_I, _I, _I, _P),
     "quadform_f32": (_P, _P, _P, _I, _I, _I, _P),
     "helmholtz_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "nodal_hex_f32": (_P, _P, _P, _P, _I, _I, _I, _P),

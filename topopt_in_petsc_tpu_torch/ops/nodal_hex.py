@@ -66,7 +66,12 @@ def helmholtz(u: torch.Tensor, eb: torch.Tensor,
 def nodal_hex(u: torch.Tensor, eb: torch.Tensor,
               KE: np.ndarray) -> torch.Tensor:
     """K4: u (nx, ny, nz, 3) f32, eb (nx-1, ny-1, nz-1) f32, KE the
-    (24, 24) f32 elasticity element matrix."""
+    (24, 24) f32 elasticity element matrix.  A bf16 u (a level of the
+    reduced-precision V-cycle) is widened to f32 for the kernel and the
+    result rounded back to bf16, as the JAX package's wrapper casts around
+    its Pallas kernel; the coefficient stays f32."""
+    if u.dtype == torch.bfloat16:
+        return _nodal_operator(NODAL_HEX, 3, u.float(), eb, KE).to(u.dtype)
     return _nodal_operator(NODAL_HEX, 3, u, eb, KE)
 
 

@@ -12,7 +12,8 @@ counted as FLOP (an add or a multiply 1, an FMA 2):
   Walsh-Hadamard transforms of 3 components (2 x 72 adds) and the eight
   3 x 3 blocks (24 multiplies + 48 FMAs), and the E scaling (24
   multiplies); per node the sum of 8 corner contributions (21 adds).  The
-  plain 24 x 24 product would be 576 FMAs per element.
+  plain 24 x 24 product would be 576 FMAs per element.  K1-bf16, K1's
+  bf16-storage build, does the same f32 operations on half the bytes.
 * K2, ``u_e . (u_e @ KE)``: per element one transform (72 adds), the
   blocks (24 multiplies + 48 FMAs) and the 24-term dot (24 FMAs), in
   place of 600 FMAs.
@@ -22,7 +23,8 @@ counted as FLOP (an add or a multiply 1, an FMA 2):
   corner terms (7 adds).  The plain 8 x 8 product would be 64 FMAs per
   element.
 
-Every one of them is bound by its bytes at every grid size.
+Every f32 kernel is bound by its bytes at every grid size; K1-bf16 by
+its operations (at 257^3 0.0775 ms against 0.0708 for its bytes).
 """
 
 from __future__ import annotations
@@ -41,11 +43,13 @@ def _counts(nn):
 
 
 def work(kernel: str, nn) -> tuple[float, float]:
-    """(bytes, FLOP) of one call of `kernel` ("K1".."K4") on an `nn` node
-    grid, f32 storage."""
+    """(bytes, FLOP) of one call of `kernel` ("K1".."K4", f32 storage, or
+    "K1-bf16", K1 on bf16 storage) on an `nn` node grid."""
     nnode, nelem = _counts(nn)
-    if kernel in ("K1", "K4"):  # u, E read; out written
-        return 4.0 * (6 * nnode + nelem), (144 + 120 + 24) * nelem + 21 * nnode
+    if kernel in ("K1", "K4", "K1-bf16"):  # u, E read; out written
+        width = 2.0 if kernel == "K1-bf16" else 4.0
+        return (width * (6 * nnode + nelem),
+                (144 + 120 + 24) * nelem + 21 * nnode)
     if kernel == "K2":  # u read, q written
         return 4.0 * (3 * nnode + nelem), (72 + 120 + 48) * nelem
     if kernel == "K3":  # dof 1: u, E read, out written

@@ -21,6 +21,14 @@ CG): the eager loop stops at convergence, the predicated form runs every
 trip.
 
 Dot products sum f32 products in f64 when `precise_dots`.
+
+`compress` (a dtype) stores what the iteration keeps between steps in
+less precision, as the JAX package's `pcg` does with its `p_compress` and
+`flex_compress` both set (the reduced-precision V-cycle's outer solve,
+`BlockedElasticityMG.krylov_compress`): the carried search direction,
+widened for use, so each iteration is exact CG along the rounded
+direction, and the copy of ``A p`` that the flexible beta keeps across
+the preconditioner.  x and r stay in the field dtype.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ class PCGState(NamedTuple):
 
     x: torch.Tensor
     r: torch.Tensor
-    p: torch.Tensor
+    p: torch.Tensor  # in `compress` when given
     rz: torch.Tensor
     rnorm: torch.Tensor
     bnorm: torch.Tensor
@@ -77,7 +85,8 @@ def _default_dot(dot, precise_dots):
 
 
 def pcg_start(A, b, x0, M=None, *, precise_dots: bool = True,
-              dot: Optional[Callable] = None) -> PCGState:
+              dot: Optional[Callable] = None,
+              compress=None) -> PCGState:
     """The carry before the first iteration, from the initial guess x0."""
     M = M or _identity
     dot = _default_dot(dot, precise_dots)
@@ -87,30 +96,36 @@ def pcg_start(A, b, x0, M=None, *, precise_dots: bool = True,
     bnorm = torch.sqrt(dot(b, b))
     rnorm = torch.sqrt(dot(r, r))
     k = torch.zeros((), dtype=torch.int32, device=b.device)
-    return PCGState(x0, r, z, rz, rnorm, bnorm, k)
+    p = z if compress is None else z.to(compress)
+    return PCGState(x0, r, p, rz, rnorm, bnorm, k)
 
 
 def _tol(bnorm, rtol, atol):
     return torch.clamp(rtol * bnorm, min=atol)
 
 
-def _body(A, M, s: PCGState, flexible, dot):
+def _body(A, M, s: PCGState, flexible, dot, compress=None):
     """One iteration from carry s: (x, r, p, rz, rnorm).  alpha and beta
     are rounded to the field dtype before use, as in the JAX package."""
     vdt = s.x.dtype
-    Ap = A(s.p)
-    pAp = dot(s.p, Ap)
+    p = s.p.to(vdt)
+    Ap = A(p)
+    pAp = dot(p, Ap)
     alpha = (s.rz / pAp).to(vdt)
-    x = s.x + alpha * s.p
+    x = s.x + alpha * p
     r = s.r - alpha * Ap
+    if flexible and compress is not None:
+        Ap = Ap.to(compress)
     z = M(r)
     if flexible:
-        beta_num = -alpha * dot(z, Ap)
+        beta_num = -alpha * dot(z, Ap.to(z.dtype))
     else:
         beta_num = dot(z, r)
     rz = dot(r, z)
     beta = (beta_num / s.rz).to(vdt)
-    p = z + beta * s.p
+    p = z + beta * p
+    if compress is not None:
+        p = p.to(compress)
     rnorm = torch.sqrt(dot(r, r))
     return x, r, p, rz, rnorm
 
@@ -124,7 +139,8 @@ def pcg_active(s: PCGState, *, rtol: float, atol: float = 1e-50,
 def pcg_trips(A, s: PCGState, M=None, n: int = 1, *, rtol: float,
               atol: float = 1e-50, maxiter: int, flexible: bool = True,
               precise_dots: bool = True,
-              dot: Optional[Callable] = None) -> PCGState:
+              dot: Optional[Callable] = None,
+              compress=None) -> PCGState:
     """Exactly n trips of the loop body.  A trip whose flag
     ``(k < maxiter) & (rnorm > tol)`` is false keeps the carry: x, r, p,
     rz and rnorm are gated with `torch.where`, so a NaN of a discarded
@@ -134,7 +150,7 @@ def pcg_trips(A, s: PCGState, M=None, n: int = 1, *, rtol: float,
     tol = _tol(s.bnorm, rtol, atol)
     for _ in range(n):
         active = (s.k < maxiter) & (s.rnorm > tol)
-        new = _body(A, M, s, flexible, dot)
+        new = _body(A, M, s, flexible, dot, compress)
         s = PCGState(
             *(torch.where(active, v, old) for v, old in zip(new, s[:5])),
             s.bnorm, s.k + active,
@@ -160,6 +176,7 @@ def pcg(
     flexible: bool = True,
     precise_dots: bool = True,
     dot: Optional[Callable] = None,
+    compress=None,
 ) -> CGResult:
     """Solve A x = b with preconditioned CG from a nonzero initial guess;
     converged when the true residual 2-norm falls to rtol * ||b||
@@ -169,11 +186,12 @@ def pcg(
     """
     M = M or _identity
     dot = _default_dot(dot, precise_dots)
-    s = pcg_start(A, b, x0, M, dot=dot)
+    s = pcg_start(A, b, x0, M, dot=dot, compress=compress)
     tol = _tol(s.bnorm, rtol, atol)
     k = 0
     while k < maxiter and bool(s.rnorm > tol):
-        s = PCGState(*_body(A, M, s, flexible, dot), s.bnorm, s.k)
+        s = PCGState(*_body(A, M, s, flexible, dot, compress), s.bnorm,
+                     s.k)
         k += 1
     return pcg_result(s)._replace(iters=k)
 

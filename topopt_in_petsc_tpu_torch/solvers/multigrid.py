@@ -15,7 +15,10 @@ PDEFilter.cc:290-380): Chebyshev-Jacobi smoothing, rediscretized coarse
 operators, a Jacobi-PCG coarse solve, and optional per-level Dirichlet
 masks.  Every level's operator is a hand-written kernel
 (ops/nodal_hex.py): K3 for dof 1 (the PDE filter), K4 for dof 3 (the
-nodal elasticity solve).
+nodal elasticity solve).  `precond_dtype` bf16 runs the whole V-cycle on
+bf16 vectors, masks and Jacobi diagonals (the JAX package's
+reduced-precision V-cycle), with the eigenvalue bound and K4's element
+coefficient kept f32: K4 widens its bf16 input and rounds its result.
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ def coarsen_cell_field(E: torch.Tensor) -> torch.Tensor:
 
 class GeometricMultigrid:
     """V-cycle preconditioner for the masked hex operator, f32 at every
-    level.
+    level, or bf16 (`precond_dtype`, the preconditioner's vectors only).
 
     grids: fine-to-coarse Grid hierarchy (length nlvls).
     KEs:   per-level (8 dof, 8 dof) element matrices (numpy).
@@ -125,11 +128,8 @@ class GeometricMultigrid:
                 f"coarse_op {coarse_op!r} is not ported yet "
                 "(ROADMAP.md queue 1 item 14)"
             )
-        if precond_dtype is not None:
-            raise NotImplementedError(
-                "a reduced-precision V-cycle is not ported yet "
-                "(ROADMAP.md queue 1 item 12)"
-            )
+        # the dtype of the V-cycle's vectors and Jacobi diagonals
+        self.vdt = precond_dtype or torch.float32
         self.grids = tuple(grids)
         self.nlvls = len(self.grids)
         f32 = dict(dtype=torch.float32, device=torch.device(device))
@@ -138,11 +138,14 @@ class GeometricMultigrid:
         self.level_applies = [
             make(g.nn, KEs[l]) for l, g in enumerate(self.grids)
         ]
-        if masks is None:
-            self.masks = self.unmasks = None
-        else:
-            self.masks = [torch.as_tensor(m, **f32) for m in masks]
-            self.unmasks = [1.0 - m for m in self.masks]
+        # per vector dtype: the per-level masks N and 1 - N
+        self._masks = None
+        if masks is not None:
+            N = [torch.as_tensor(m, **f32) for m in masks]
+            self._masks = {
+                dt: ([m.to(dt) for m in N], [(1.0 - m).to(dt) for m in N])
+                for dt in {torch.float32, self.vdt}
+            }
         self.smooth_sweeps = smooth_sweeps
         self.cheby_lower = cheby_lower
         self.cheby_upper = cheby_upper
@@ -156,29 +159,33 @@ class GeometricMultigrid:
         applied matrix-free at every level); `coef` is the level's
         prepared element coefficient (`setup`)."""
         ap = self.level_applies[level]
-        if self.masks is None:
+        if self._masks is None:
             return ap.apply_prepared(v.contiguous(), coef)
-        N = self.masks[level]
+        masks, unmasks = self._masks[v.dtype]
+        N = masks[level]
         Kv = ap.apply_prepared(N * v, coef)
-        return N * Kv + self.unmasks[level] * v
+        return N * Kv + unmasks[level] * v
 
     def setup(self, scale_fine: torch.Tensor) -> List[dict]:
-        """Per-level {coef, dinv, lmax} from the fine element scale.  lmax
-        is the certain Gershgorin bound; masked rows are identity rows
-        (diagonal 1, ratio 1)."""
+        """Per-level {coef, dinv, lmax} from the fine element scale: coef
+        and lmax f32, dinv in the V-cycle's dtype.  lmax is the certain
+        Gershgorin bound; masked rows are identity rows (diagonal 1, ratio
+        1)."""
         levels = []
         E = scale_fine.to(torch.float32)
         for l, g in enumerate(self.grids):
             if l > 0:
                 E = coarsen_cell_field(E)
             d = hex_operator_diagonal(E, self.KEs[l], g.nn)
-            mask = None if self.masks is None else self.masks[l]
-            if mask is not None:
-                d = mask * d + self.unmasks[l]
+            mask = None
+            if self._masks is not None:
+                masks, unmasks = self._masks[torch.float32]
+                mask = masks[l]
+                d = mask * d + unmasks[l]
             R = hex_operator_absrowsum(E, self.KEs[l], g.nn)
             levels.append({
                 "coef": self.level_applies[l].prepare_coef(E),
-                "dinv": 1.0 / d,
+                "dinv": (1.0 / d).to(self.vdt),
                 "lmax": gershgorin_lambda_max(R, d, mask),
             })
         return levels
@@ -215,10 +222,14 @@ class GeometricMultigrid:
         return smooth(b, x)
 
     def _masked(self, level: int, v: torch.Tensor) -> torch.Tensor:
-        return v if self.masks is None else self.masks[level] * v
+        return v if self._masks is None else \
+            self._masks[v.dtype][0][level] * v
 
     def preconditioner(self, levels: List[dict], *,
                        predicated: bool = False) -> Callable:
-        """The V-cycle as M; `predicated` for the predicated solves of the
-        fused step, eager for the split driver's."""
-        return lambda r: self.vcycle(levels, r, predicated=predicated)
+        """The V-cycle as M: on r cast to the V-cycle's dtype, its result
+        cast back; `predicated` for the predicated solves of the fused
+        step, eager for the split driver's."""
+        vdt = self.vdt
+        return lambda r: self.vcycle(
+            levels, r.to(vdt), predicated=predicated).to(r.dtype)
