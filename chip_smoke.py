@@ -8,7 +8,13 @@ Phases, each printing its lines before the next starts:
   2. build: the hand-written kernels K1-K4 with nvcc, and its time;
   3. kernel parity: each kernel against its plain PyTorch version on the
      card at 9x7x5, 65x33x33, 13x11x7, the tile edges 9x9x33 and
-     13x11x37, and the coarse levels 17^3 and 33^3 (rtol 2e-5, atol 1e-5
+     13x11x37, and the coarse levels 17^3 and 33^3, then on every local
+     block that phases 21-22's meshes give a kernel at any level, with
+     the element matrix of the level's global grid (129x257x257 down to
+     9x17x17 of 257^3 on mesh (2,1,1), 17x9x9, 9x5x5 and 5x3x3 of
+     33x17x17 on (2,2,2), 9x9x9 and 5x5x5 of 33x17x9 on (4,2,1) and of
+     17^3 on (2,2,2); K1 with and without the x = 0 mask, as the ranks
+     at x-coordinate 0 and the others run it) (rtol 2e-5, atol 1e-5
      of max|ref|, the JAX package's bar for its Pallas kernels; K1's
      bf16-storage build, K1-bf16, rtol 2^-7: both round once to bf16);
      two launches of each of K1-K4 and K1-bf16 bitwise equal (no
@@ -96,12 +102,32 @@ Phases, each printing its lines before the next starts:
      14 and a profiled steady one with K1's runs and device time per
      level and the 20 kernels with the most device time; the device ms of
      an Arnoldi trip and of a cycle close, and of a trip's Krylov part
-     alone (A and M the identity) beside its Gram-Schmidt's bytes bound.
+     alone (A and M the identity) beside its Gram-Schmidt's bytes bound;
+ 21. the multi-device engine (-mesh_shape), its ranks sharing the card
+     over gloo: the CLI in a subprocess (which spawns its ranks) under a
+     300 s timeout, for the three variants of the JAX package's
+     __graft_entry__.py::dryrun_multichip at 8 ranks, 3 iterations each,
+     with its f32 sums (-precise_dots 0):
+     mesh (2,2,2) 33x17x17 3 levels on the default route (K1) and on
+     -operator_impl pallas (K4), mesh (4,2,1) 33x17x9 with -filter 2
+     -projectionFilter 1 -beta 1 (K1, K3), mesh (2,2,2) 17x17x17 on
+     -operator_impl blocked; each held to the single-card -fused 1 run
+     with its flags (fx within 1e-4 at iteration 1 and 1e-3 at every
+     iteration, solver iterations within 1, never stalled), with every
+     rank's launches of the route's kernels above 0 (each rank's own
+     counts, from its "# rank r launches" line);
+ 22. 257^3 on mesh (2,1,1) (129x257x257 nodes per rank), 2 iterations of
+     the default route: iteration-1 compliance within 1e-3 of the golden,
+     solver iterations within 1 of its 27, K1 and K2 launched on both
+     ranks, s/iteration beside phase 6's and each rank's peak memory.
+A failed mesh run prints its output's last lines (the launcher prints
+every rank's last 40 on a failure) and raises.
 A CUDA graph's replay counts the kernel launches it recorded
 (ops/cuda_build.py); phase 15 holds that count to the device's own
 record.  Then one JSON line of per-kernel results, whose
 launch counts are the fused paths' (phases 10-12, K1-bf16's phase 16's
-fused resident run) and whose bounds are
+fused resident run; K1-K4 also carry `mesh_launches`, their launches summed
+over the ranks of phases 21-22) and whose bounds are
 topopt_in_petsc_tpu_torch/ops/roofline.py's for phase 4's inputs, and,
 last, the JSON status line.  Any failure raises: the exit code is
 nonzero and no status line is printed.  Nothing falls back to the CPU or
@@ -111,6 +137,8 @@ to a plain version.
 import contextlib
 import json
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -123,6 +151,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7), (9, 9, 33),
                  (13, 11, 37), (17, 17, 17), (33, 33, 33))
+# phases 21-22's meshes: (global nodes, mesh, levels); phase 3 holds the
+# kernels to their plain versions on every level's local block
+MESH_GRIDS = (((257, 257, 257), (2, 1, 1), 5), ((33, 17, 17), (2, 2, 2), 3),
+              ((33, 17, 9), (4, 2, 1), 2), ((17, 17, 17), (2, 2, 2), 2))
 # the bitwise repeats at these shapes (tile edges on every axis)
 REPEAT_SHAPES = ((13, 11, 37), (65, 33, 33))
 LEVELS_257 = ((257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3)
@@ -136,6 +168,25 @@ BF16_RTOL = 2.0**-7
 # absolute (gx[0] passes through 0 at iteration 1)
 FX_RTOL, GX_ATOL, CH_ATOL = 1e-3, 1e-4, 1e-3
 GOLDEN_257_FX1 = 1725.1459  # docs/golden_history_257x257x257.npz, it. 1
+GOLDEN_257_ITERS1 = 27  # its solver iterations at iteration 1
+# the multi-device runs (phases 21-22): the CLI's flags of each variant of
+# __graft_entry__.py::dryrun_multichip, and the kernels of its route
+MESH_TIMEOUT = 300
+MESH_VARIANTS = (
+    ("21 deep", ["-nx", "33", "-ny", "17", "-nz", "17", "-nlvls", "3",
+                 "-rmin", "0.16"], "2,2,2", ("K1", "K2")),
+    ("21 deep pallas", ["-nx", "33", "-ny", "17", "-nz", "17", "-nlvls",
+                        "3", "-rmin", "0.16", "-operator_impl", "pallas"],
+     "2,2,2", ("K4", "K2")),
+    ("21 filter 2", ["-nx", "33", "-ny", "17", "-nz", "9", "-nlvls", "2",
+                     "-rmin", "0.16", "-filter", "2", "-projectionFilter",
+                     "1", "-beta", "1"], "4,2,1", ("K1", "K2", "K3")),
+    ("21 blocked", ["-nx", "17", "-ny", "17", "-nz", "17", "-nlvls", "2",
+                    "-rmin", "0.12", "-operator_impl", "blocked",
+                    "-ksp_chunk", "2"], "2,2,2", ("K1", "K2")),
+)
+RANK_LINE = re.compile(r"^# rank (\d+) launches (\{.*?\}) comm (\{.*?\})"
+                       r"(?: max_memory_allocated (\d+))?$")
 # |fx / fx_r - 1| of an f64 257^3 iteration 1 on the exact element
 # matrices against one on the matrices rounded to f32: the rounding moves
 # the compliance by 5.7e-4 at 65x33x33, 2.3e-3 at 129x65x65 and 3.49e-2 at
@@ -173,29 +224,32 @@ def phase_build():
         f"(nvcc {LIBRARY.build_seconds} s)")
 
 
-def _case(nn, seed, dev):
+def _case(nn, seed, dev, grid_nn=None):
+    """(element matrix, v, E) of K1 on nn nodes; the element matrix is that
+    of the grid of grid_nn nodes (default nn) on the 2x1x1 box."""
     from topopt_in_petsc_tpu_torch.grid import Grid
     from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
 
-    grid = Grid(nn=nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
+    grid = Grid(nn=grid_nn or nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
     KE = hex8_stiffness(*grid.h, 0.3)
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.normal(size=(3, *nn)), dtype=torch.float32,
                         device=dev)
-    E = torch.as_tensor(rng.uniform(1e-9, 1.0, size=grid.ne),
+    E = torch.as_tensor(rng.uniform(1e-9, 1.0, size=[n - 1 for n in nn]),
                         dtype=torch.float32, device=dev)
     return KE, u, E
 
 
-def _nodal_case(nn, seed, dev, dof):
-    """(element matrix, u, E) of K3 (dof 1) or K4 (dof 3) on one grid."""
+def _nodal_case(nn, seed, dev, dof, grid_nn=None):
+    """(element matrix, u, E) of K3 (dof 1) or K4 (dof 3) on nn nodes, the
+    element matrix as `_case`'s."""
     from topopt_in_petsc_tpu_torch.grid import Grid
     from topopt_in_petsc_tpu_torch.models.elements import (
         helmholtz_element_matrices,
         hex8_stiffness,
     )
 
-    grid = Grid(nn=nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
+    grid = Grid(nn=grid_nn or nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
     if dof == 1:  # the default rmin 0.08, R = rmin / (2 sqrt 3)
         KE = helmholtz_element_matrices(*grid.h, 0.08 / (2 * 3**0.5))[0]
     else:
@@ -203,7 +257,7 @@ def _nodal_case(nn, seed, dev, dof):
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.normal(size=(*nn, dof)), dtype=torch.float32,
                         device=dev)
-    E = torch.as_tensor(rng.uniform(1e-3, 1.0, size=grid.ne),
+    E = torch.as_tensor(rng.uniform(1e-3, 1.0, size=[n - 1 for n in nn]),
                         dtype=torch.float32, device=dev)
     return np.ascontiguousarray(KE, dtype=np.float32), u, E
 
@@ -231,9 +285,9 @@ def _plain_k1(vb, eb, KE, mask_x0):
     return mask0(out) if mask_x0 else out
 
 
-def _bf16_case(nn, seed, dev):
+def _bf16_case(nn, seed, dev, grid_nn=None):
     """K1-bf16's inputs: K1's, rounded to bf16."""
-    KE, u, E = _case(nn, seed, dev)
+    KE, u, E = _case(nn, seed, dev, grid_nn)
     return KE, u.to(torch.bfloat16), E.to(torch.bfloat16)
 
 
@@ -266,30 +320,49 @@ def _compare(name, got, ref, phase="3 parity", rtol=RTOL):
     return err
 
 
+def _mesh_blocks():
+    """(local block nodes, level grid nodes) of every level of MESH_GRIDS,
+    each block once."""
+    from topopt_in_petsc_tpu_torch.grid import Grid
+    from topopt_in_petsc_tpu_torch.parallel.decomp import BlockDecomp
+
+    blocks = []
+    for nn, mesh, nlvls in MESH_GRIDS:
+        d = BlockDecomp(Grid(nn=nn), mesh, nlvls)
+        for l in range(nlvls):
+            b = (d.local_nn(l), d.level_grid(l).nn)
+            if b not in blocks:
+                blocks.append(b)
+    return blocks
+
+
 def phase_parity(dev):
     from topopt_in_petsc_tpu_torch.ops.blocked_hex import hex_operator
     from topopt_in_petsc_tpu_torch.ops.quadform import quadform
 
     errs = {"K1": 0.0, "K2": 0.0, "K1-bf16": 0.0}
-    for i, nn in enumerate(PARITY_SHAPES):
-        KE, vb, E = _case(nn, i, dev)
-        _, vh, Eh = _bf16_case(nn, i, dev)
+    cases = [(nn, None) for nn in PARITY_SHAPES] + _mesh_blocks()
+    for i, (nn, grid_nn) in enumerate(cases):
+        where = f"{nn}" if grid_nn is None else f"{nn} block of {grid_nn}"
+        KE, vb, E = _case(nn, i, dev, grid_nn)
+        _, vh, Eh = _bf16_case(nn, i, dev, grid_nn)
         for mask_x0 in (False, True):
             got = hex_operator(vb, E, KE, mask_x0)
             ref = _plain_k1(vb, E, KE, mask_x0)
             errs["K1"] = max(errs["K1"], _compare(
-                f"K1 {nn} mask_x0={mask_x0}", got, ref))
+                f"K1 {where} mask_x0={mask_x0}", got, ref))
             errs["K1-bf16"] = max(errs["K1-bf16"], _compare(
-                f"K1-bf16 {nn} mask_x0={mask_x0}",
+                f"K1-bf16 {where} mask_x0={mask_x0}",
                 hex_operator(vh, Eh, KE, mask_x0),
                 _plain_k1_bf16(vh, Eh, KE, mask_x0), rtol=BF16_RTOL))
         u = vb.permute(1, 2, 3, 0).contiguous()
         errs["K2"] = max(errs["K2"], _compare(
-            f"K2 {nn}", quadform(u, KE), _plain_k2(u, KE)))
+            f"K2 {where}", quadform(u, KE), _plain_k2(u, KE)))
         for name, (dof, wrapper) in _nodal_wrappers().items():
-            K, un, En = _nodal_case(nn, 10 + i, dev, dof)
+            K, un, En = _nodal_case(nn, 10 + i, dev, dof, grid_nn)
             errs[name] = max(errs.get(name, 0.0), _compare(
-                f"{name} {nn}", wrapper(un, En, K), _plain_nodal(un, En, K)))
+                f"{name} {where}", wrapper(un, En, K),
+                _plain_nodal(un, En, K)))
     torch.cuda.synchronize()
     _parity_forms(dev)
     return errs
@@ -1150,6 +1223,124 @@ def phase_options_257(fused_f32_times):
     log(f"[20 257^3 fgmres] {json.dumps(_fgmres_krylov_trip())}")
 
 
+# -- the multi-device engine (-mesh_shape) --------------------------------- #
+
+def _run_mesh(tag, args, workdir):
+    """The CLI run of `args` in a subprocess of its own process group,
+    which spawns the mesh's ranks, under `MESH_TIMEOUT`: (history, the
+    ranks' launch counts and peak memory, seconds).  A failed or
+    overlong run prints the last lines of its output, then raises."""
+    path = os.path.join(workdir, "cli.log")
+    cmd = [sys.executable, "-m", "topopt_in_petsc_tpu_torch", *args,
+           "-workdir", workdir]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    with open(path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MESH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = f"timeout after {MESH_TIMEOUT} s"
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if rc != 0:
+        log(f"[{tag}] mesh run {' '.join(args)}: exit {rc} after "
+            f"{seconds:.1f} s; the last lines of its output:")
+        for line in lines[-400:]:
+            log(f"[{tag}] | {line}")
+        raise RuntimeError(f"{tag}: the mesh run failed ({rc})")
+    ranks, comm = {}, {}
+    for line in lines:
+        m = RANK_LINE.match(line)
+        if m:
+            ranks[int(m.group(1))] = (json.loads(m.group(2)),
+                                      int(m.group(4) or 0))
+            comm[int(m.group(1))] = json.loads(m.group(3))
+    log(f"[{tag}] communication by rank (exchanges, reductions, seconds "
+        f"waiting for the device, seconds of transfer): "
+        f"{json.dumps(dict(sorted(comm.items())))}")
+    with np.load(os.path.join(workdir, "history.npz")) as h:
+        return {k: h[k] for k in h.files}, ranks, seconds
+
+
+def _check_ranks(tag, ranks, world, names):
+    """Every rank reported, and launched each kernel of `names`."""
+    if sorted(ranks) != list(range(world)):
+        raise AssertionError(f"{tag}: rank lines of {sorted(ranks)}, "
+                             f"expected {world} ranks")
+    low = {r: {n: c[n] for n in names} for r, (c, _) in ranks.items()
+           if min(c[n] for n in names) <= 0}
+    if low:
+        raise AssertionError(f"{tag}: a kernel of the route was not "
+                             f"launched on every rank: {low}")
+
+
+def phase_mesh_variants():
+    """Phase 21; returns the launch counts summed over ranks and runs."""
+    total = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    common = ["-ksp_maxit", "30", "-maxItr", "3", "-output_cadence_vtu",
+              "0", "-restart", "0", "-precise_dots", "0"]
+    for tag, flags, shape, names in MESH_VARIANTS:
+        world = int(np.prod([int(v) for v in shape.split(",")]))
+        with tempfile.TemporaryDirectory() as tmp:
+            h, ranks, seconds = _run_mesh(
+                tag, [*flags, *common, "-mesh_shape", shape], tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = _run_cli([*flags, *common, "-fused", "1"], tmp)
+        rel = np.abs(h["fx"] / ref["fx"] - 1)
+        dit = int(np.max(np.abs(h["iters"] - ref["iters"])))
+        log(f"[{tag}] mesh {shape}, {world} ranks: fx {h['fx'].tolist()} "
+            f"against -fused 1 {ref['fx'].tolist()}: rel {rel.tolist()} "
+            f"(bars 1e-4 at it. 1, 1e-3); solver iterations "
+            f"{h['iters'].tolist()} and {ref['iters'].tolist()}; stalled "
+            f"{h['stalled'].tolist()}; s/iteration {h['time'].tolist()}; "
+            f"the run took {seconds:.1f} s; launches by rank "
+            f"{ {r: c for r, (c, _) in sorted(ranks.items())} }")
+        if (len(h["fx"]) != 3 or not np.isfinite(h["fx"]).all()
+                or rel[0] > 1e-4 or rel.max() > 1e-3 or dit > 1
+                or h["stalled"].any()):
+            raise AssertionError(f"{tag}: the mesh run is off the "
+                                 "single-card run or stalled")
+        _check_ranks(tag, ranks, world, names)
+        for c, _ in ranks.values():
+            for n in total:
+                total[n] += c[n]
+    return total
+
+
+def phase_mesh_257(split_times, total):
+    """Phase 22: 257^3 on two ranks of the card."""
+    tag = "22 257^3 mesh 2,1,1"
+    with tempfile.TemporaryDirectory() as tmp:
+        h, ranks, seconds = _run_mesh(
+            tag, [*_size_args(257), "-maxItr", "2", "-output_cadence_vtu",
+                  "0", "-mesh_shape", "2,1,1"], tmp)
+    d = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
+    log(f"[{tag}] fx {h['fx'].tolist()}, it.1 rel diff to golden {d:.3e}, "
+        f"solver iterations {h['iters'].tolist()} (single card: "
+        f"{GOLDEN_257_ITERS1}), stalled {h['stalled'].tolist()}, "
+        f"s/iteration {h['time'].tolist()} (single card, phase 6: "
+        f"{split_times}), the run took {seconds:.1f} s; by rank: "
+        f"launches and max_memory_allocated "
+        f"{ {r: (c, f'{p} B ({p / 2**30:.2f} GiB)') for r, (c, p) in sorted(ranks.items())} }")
+    if (len(h["fx"]) != 2 or not np.isfinite(h["fx"]).all() or d > 1e-3
+            or abs(int(h["iters"][0]) - GOLDEN_257_ITERS1) > 1
+            or h["stalled"].any()):
+        raise AssertionError(f"{tag}: off the golden or stalled")
+    _check_ranks(tag, ranks, 2, ("K1", "K2"))
+    for c, _ in ranks.values():
+        for n in total:
+            total[n] += c[n]
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1218,6 +1409,10 @@ def main() -> int:
     done(19)
     phase_options_257(fused_times)
     done(20)
+    mesh_launches = phase_mesh_variants()
+    done(21)
+    phase_mesh_257(split_times["default"], mesh_launches)
+    done(22)
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",
@@ -1225,24 +1420,28 @@ def main() -> int:
          "replaces": "topopt_in_petsc_tpu/ops/blocked_hex.py:65",
          "launches": launches["K1"], "max_abs_err": errs["K1"],
          "ms": times["K1"][0], "plain_ms": times["K1"][1],
+         "mesh_launches": mesh_launches["K1"],
          **_bound("K1", times["K1"][0])},
         {"name": "quadform (K2)", "route": "cuda",
          "source": src + "quadform.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:274",
          "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": times["K2"][0], "plain_ms": times["K2"][1],
+         "mesh_launches": mesh_launches["K2"],
          **_bound("K2", times["K2"][0])},
         {"name": "helmholtz (K3)", "route": "cuda",
          "source": src + "nodal_hex.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:416",
          "launches": launches["K3"], "max_abs_err": errs["K3"],
          "ms": times["K3"][0], "plain_ms": times["K3"][1],
+         "mesh_launches": mesh_launches["K3"],
          **_bound("K3", times["K3"][0])},
         {"name": "nodal_hex (K4)", "route": "cuda",
          "source": src + "nodal_hex.cu",
          "replaces": "topopt_in_petsc_tpu/ops/pallas_hex.py:59",
          "launches": launches["K4"], "max_abs_err": errs["K4"],
          "ms": times["K4"][0], "plain_ms": times["K4"][1],
+         "mesh_launches": mesh_launches["K4"],
          **_bound("K4", times["K4"][0])},
         {"name": "hex_operator bf16 (K1 bf16)", "route": "cuda",
          "source": src + "hex_operator.cu",

@@ -84,7 +84,8 @@ def test_parsed_config_and_banner_match(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-mesh_shape", "2,2,2"], 15),
+    # item 15b: the multi-device engine's options of the next slice
+    (["-mesh_shape", "2,2,2", "-ksp_type", "fgmres"], 15),
     (["-profile_dir", "prof"], 16),
 ])
 def test_flags_outside_the_port_raise(argv, item):

@@ -5,9 +5,11 @@ Same fields, defaults, CLI flags and banner as the JAX package's
 flag of the port: ``-device cuda|cpu`` (default ``cuda``, no
 auto-detection).
 
-Flags whose code path the port does not carry yet (`-mesh_shape`,
-`-profile_dir`) raise `NotImplementedError` naming the ROADMAP item that
-will port it; none of them falls back silently.
+Flags whose code path the port does not carry yet raise
+`NotImplementedError` naming the ROADMAP item that will port it:
+`-profile_dir` (item 16), and under `-mesh_shape` the reduced-precision
+V-cycle, `-coarse_op galerkin_octant` and `-ksp_type fgmres` (item 15b);
+none of them falls back silently.
 """
 
 from __future__ import annotations
@@ -122,7 +124,8 @@ class TopOptConfig:
     # bf16 coarse levels; the resident solver only)
     mg_dtype: str = "same"
     precise_dots: bool = True  # f64 accumulation of dots and sums
-    mesh_shape: tuple = (1, 1, 1)  # multi-device: ROADMAP item 15
+    # rank grid of the multi-device engine (parallel/spmd_driver.py)
+    mesh_shape: tuple = (1, 1, 1)
     fused: bool = False  # the fused step (parallel/fused_step.py)
     output_cadence_vtu: bool = True  # write .vtu fields like main.cc:114-116
     output_dat: bool = False  # reference-format .dat (io/mpiio_dat.py)
@@ -263,13 +266,34 @@ class TopOptConfig:
                     f"{flag} is not ported to topopt_in_petsc_tpu_torch yet "
                     f"(ROADMAP.md queue 1 item {item})"
                 )
+        if self.mesh:
+            # the overlapping blocks (parallel/decomp.py): raises unless
+            # every axis splits evenly into blocks that coarsen nlvls-1
+            # times
+            from topopt_in_petsc_tpu_torch.grid import Grid
+            from topopt_in_petsc_tpu_torch.parallel.decomp import (
+                BlockDecomp,
+            )
+
+            BlockDecomp(Grid.from_config(self), tuple(self.mesh_shape),
+                        self.nlvls)
+
+    @property
+    def mesh(self) -> bool:
+        """Does the run go over a rank grid (`-mesh_shape` not 1,1,1)?"""
+        return tuple(self.mesh_shape) != (1, 1, 1)
 
     def _not_ported(self):
         """(flag, requested?, ROADMAP item) for every code path the port
         does not carry yet."""
         return (
-            ("-mesh_shape", tuple(self.mesh_shape) != (1, 1, 1), 15),
             ("-profile_dir", bool(self.profile_dir), 16),
+            ("-mg_dtype bfloat16|mixed under -mesh_shape",
+             self.mesh and self.mg_dtype != "same", "15b"),
+            ("-coarse_op galerkin_octant under -mesh_shape",
+             self.mesh and self.coarse_op != "rediscretize", "15b"),
+            ("-ksp_type fgmres under -mesh_shape",
+             self.mesh and self.ksp_type == "fgmres", "15b"),
         )
 
     # ----------------------------------------------------------------- #

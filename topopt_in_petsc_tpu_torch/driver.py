@@ -242,6 +242,12 @@ class Driver:
 
 
 def run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
+    if cfg.mesh:
+        # the multi-device engine, whatever -fused says, as in the JAX
+        # package; the history is rank 0's
+        from topopt_in_petsc_tpu_torch.parallel.spmd_driver import run_mesh
+
+        return run_mesh(cfg, max_iters)
     if cfg.fused:
         # one step call per iteration over every filter, -filter 2
         # included (the JAX package runs that on its SPMD engine)

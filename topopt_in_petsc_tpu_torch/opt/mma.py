@@ -24,6 +24,13 @@ the m x m dual Newton system is tiny.  As in the JAX package, the working
 dtype is a constructor argument: the split driver runs f64, the fused step
 the field dtype (f32) with f64 sums (`precise_dots`).
 
+Over the rank grid of `-mesh_shape` each rank holds a block of the
+design, and the constructor's reduction hooks (the JAX package's
+`reduce_sum`, `reduce_max`, `reduce_matrix`; the reference's
+MPI_Allreduce sites, MMA.cc:626, 764, 834, 925) complete the design-wide
+sums, the design change's maximum and the dual Hessian over the ranks.
+Without hooks they are the local reductions, as on one device.
+
 The dual interior point has two forms with the same result.  The split
 driver's `update` runs it as nested host loops (`_dip_lambda`), one host
 read per Newton step.  The fused step runs it as one flattened, predicated
@@ -72,13 +79,20 @@ class MMA:
                  c: Optional[Sequence[float]] = None,
                  asyminit: float = 0.5, asymdec: float = 0.7,
                  asyminc: float = 1.2, robust_asymptotes_type: int = 0,
-                 constraint_modification: bool = False):
+                 constraint_modification: bool = False,
+                 reduce_sum=None, reduce_max=None, reduce_matrix=None):
         self.n = n
         self.m = m
         self.shape = tuple(shape)
         self.device = torch.device(device)
         self.dtype = dtype
         self.precise = precise_dots
+        sdt = F64 if precise_dots else dtype
+        # design-wide sum (f64 when `precise`), maximum, and the sum of the
+        # (m, m) dual Hessian's blocks
+        self._sum = reduce_sum or (lambda v: torch.sum(v, dtype=sdt))
+        self._max = reduce_max or torch.max
+        self._matsum = reduce_matrix or (lambda H: H)
 
         def vec(v, default):
             v = [default] * m if v is None else v
@@ -151,7 +165,7 @@ class MMA:
     def design_change(self, x, xold):
         """DesignChange (MMA.cc:407-426): inf-norm of x - xold.
         Returns (ch, x) — the caller stores x as the new xold."""
-        ch = torch.max(torch.abs(x.to(F64) - xold.to(F64)))
+        ch = self._max(torch.abs(x.to(F64) - xold.to(F64)))
         return float(ch), x
 
     def update(self, x, dfdx, gx, dgdx, xmin, xmax):
@@ -235,9 +249,8 @@ class MMA:
         """sum_i pij/(U-x) + qij/(x-L), per constraint j: (m,), summed in
         f64 when `precise`."""
         L, U, pij, qij = sub
-        sdt = F64 if self.precise else self.dtype
         return torch.stack([
-            torch.sum(pij[j] / (U - x) + qij[j] / (x - L), dtype=sdt)
+            self._sum(pij[j] / (U - x) + qij[j] / (x - L))
             for j in range(self.m)
         ]).to(self.dtype)
 
@@ -282,7 +295,7 @@ class MMA:
 
         PQf = PQ.reshape(self.m, -1)
         w = (PQf * df2.reshape(1, -1)).to(F64 if self.precise else self.dtype)
-        Hess = (w @ PQf.to(w.dtype).T).to(self.dtype)
+        Hess = self._matsum((w @ PQf.to(w.dtype).T).to(self.dtype))
 
         lamai = torch.sum(lam * self.a)
         diag_corr = torch.where(lam > self.c, -1.0, 0.0) - mu / torch.clamp(

@@ -20,11 +20,19 @@ The filter map is self-adjoint: Gradients() == FilterProject()
 A solve runs either as one eager `pcg` call (the split driver) or in the
 predicated form, `start`, `advance` in segments and `finish` (the fused
 step); the warm start is one buffer, updated in place.
+
+Under `-mesh_shape` each rank filters its element block through the hooks
+of its `parallel/spmd.py::MeshBlock` (the JAX package's
+`parallel/spmd_pde_filter.py`): the multigrid on the rank's blocks with
+min(pde_nlvls, nlvls) levels, T's scatter completed across the blocks,
+dots over the owned nodes, K3 on the levels of the JAX engine's rule, and
+no smoke solve.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,21 +55,27 @@ from topopt_in_petsc_tpu_torch.solvers.cg import (
     pcg_start,
     pcg_trips,
 )
-from topopt_in_petsc_tpu_torch.solvers.multigrid import GeometricMultigrid
+from topopt_in_petsc_tpu_torch.solvers.multigrid import (
+    GeometricMultigrid,
+    OneBlock,
+)
 
 
 class PDEFilter:
     def __init__(self, cfg, grid, *, device: torch.device,
-                 smoke: bool = True):
+                 smoke: bool = True, block: Optional[OneBlock] = None):
         self.cfg = cfg
-        self.grid = grid
         self.device = torch.device(device)
         self.dtype = cfg.torch_dtype
         self.R = cfg.rmin / (2.0 * math.sqrt(3.0))
+        self.block = block = block or OneBlock()
 
         # cfg.validate() checked that the grid halves pde_nlvls - 1 times
-        grids = grid.hierarchy(cfg.pde_nlvls)
-        KFs = [helmholtz_element_matrices(*g.h, self.R)[0] for g in grids]
+        grids = block.hierarchy(grid, cfg.pde_nlvls)
+        # the block's grid: the nodes and elements of the filtered fields
+        self.grid = grids[0]
+        KFs = [helmholtz_element_matrices(*g.h, self.R)[0]
+               for g in grid.hierarchy(len(grids))]
         self.mg = GeometricMultigrid(
             grids,
             KFs,
@@ -69,20 +83,22 @@ class PDEFilter:
             dof=1,
             device=self.device,
             dtype=self.dtype,
-            plain=cfg.operator_impl == "xla" or cfg.dtype != "float32",
+            plain=(cfg.operator_impl in block.plain_filter_impls
+                   or cfg.dtype != "float32"),
             smooth_sweeps=max(2, cfg.smooth_sweeps // 2),
             coarse_rtol=1e-8,
             coarse_maxit=10,
             precise_dots=cfg.precise_dots,
+            block=block,
         )
         # design-independent operator: one MG setup with unit scale
         self._levels = self.mg.setup(
-            torch.ones(grid.ne, dtype=self.dtype, device=self.device)
+            torch.ones(self.grid.ne, dtype=self.dtype, device=self.device)
         )
         self.elem_volume = grid.elem_volume
 
         # warm-start state (KSPSetInitialGuessNonzero, PDEFilter.cc:285)
-        nx, ny, nz = grid.nn
+        nx, ny, nz = self.grid.nn
         self._u = torch.zeros((nx, ny, nz, 1), dtype=self.dtype,
                               device=self.device)
 
@@ -93,7 +109,7 @@ class PDEFilter:
         # constructor smoke test, like PDEFilter.cc:175-187; drawn on the
         # CPU so every device gets the same numbers
         gen = torch.Generator().manual_seed(0)
-        test = torch.rand(grid.ne, generator=gen, dtype=self.dtype)
+        test = torch.rand(self.grid.ne, generator=gen, dtype=self.dtype)
         self._project_core_host(test.to(self.device))
         print("Done setting up the PDEFilter")
 
@@ -109,9 +125,11 @@ class PDEFilter:
 
     def _T_apply(self, x: torch.Tensor) -> torch.Tensor:
         """RHS = elemVol * T x: each element spreads x_e/8 to its corners
-        (PDEFilter.cc:198-202 MatMult(T,...) + VecScale(elemVol))."""
+        (PDEFilter.cc:198-202 MatMult(T,...) + VecScale(elemVol)),
+        completed across the blocks."""
         fe = (x[..., None] * 0.125).expand(*x.shape, 8)
-        return self.elem_volume * scatter_element_dofs(fe, self.grid.nn)
+        return self.elem_volume * self.block.complete(
+            scatter_element_dofs(fe, self.grid.nn))
 
     def _Tt_apply(self, u: torch.Tensor) -> torch.Tensor:
         """xTilde = T^T u: mean of the 8 corner node values
@@ -131,7 +149,7 @@ class PDEFilter:
             rtol=cfg.pde_rtol,
             maxiter=cfg.pde_maxit,
             flexible=True,
-            precise_dots=cfg.precise_dots,
+            dot=self.mg.dot,
         )
         return res.x, self._Tt_apply(res.x), res.iters, res.relres
 
@@ -149,7 +167,7 @@ class PDEFilter:
         return pcg_start(
             self._A, self._T_apply(x.to(self.dtype)), self._u,
             self.mg.preconditioner(self._levels, predicated=True),
-            precise_dots=self.cfg.precise_dots,
+            dot=self.mg.dot,
         )
 
     def advance(self, state: PCGState, n: int) -> PCGState:
@@ -158,7 +176,7 @@ class PDEFilter:
             self._A, state,
             self.mg.preconditioner(self._levels, predicated=True), n,
             rtol=cfg.pde_rtol, maxiter=cfg.pde_maxit, flexible=True,
-            precise_dots=cfg.precise_dots,
+            dot=self.mg.dot,
         )
 
     def active(self, state: PCGState) -> torch.Tensor:

@@ -29,16 +29,28 @@ or the predicated form, `start` and then `advance` in segments, with
 CG follows its outer solve: eager under `solve`, `coarse_maxit`
 predicated trips under `start`/`advance`/`close`, so that their V-cycles
 never read the device from the host.
+
+Under `-mesh_shape` each rank solves its block with this class, through
+the hooks of its `parallel/spmd.py::MeshBlock` (solvers/multigrid.py
+`OneBlock` on one device): every operator application is completed across
+the blocks on the layout's spatial axes, the diagonal and the absolute row
+sums before the Gershgorin bound, whose maximum is taken over the ranks;
+the restriction counts a shared plane once; dots sum the owned nodes; and
+the clamped wall is masked (by K1 in its pass, and in the transfers) on
+the blocks that hold it only.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from topopt_in_petsc_tpu_torch.ops.blocked_hex import BlockedHexOperator
+from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
+    BlockedHexOperator,
+    mask0,
+)
 from topopt_in_petsc_tpu_torch.ops.hex_operator import (
     hex_operator_absrowsum,
     hex_operator_diagonal,
@@ -60,9 +72,9 @@ from topopt_in_petsc_tpu_torch.solvers.gmres import (
     fgmres_trips,
 )
 from topopt_in_petsc_tpu_torch.solvers.multigrid import (
+    OneBlock,
     coarsen_cell_field,
     prolong,
-    restrict,
 )
 
 _SPATIAL = (1, 2, 3)  # the grid axes of a resident (3, nx, ny, nz) vector
@@ -74,7 +86,8 @@ class BlockedElasticityMG:
     mg_dtype: None (f32 at every level), torch.bfloat16 (every level) or
     "mixed" (f32 fine level, bf16 coarse levels).  fine_post_smooth: the
     degree of the f32 Chebyshev refinement appended to a V-cycle whose
-    fine level is bf16 (0 = none; no effect otherwise)."""
+    fine level is bf16 (0 = none; no effect otherwise).  block: the hooks
+    of the block the vectors hold (`OneBlock`); grids are the block's."""
 
     def __init__(
         self,
@@ -90,6 +103,7 @@ class BlockedElasticityMG:
         precise_dots: bool = True,
         mg_dtype=None,
         fine_post_smooth: int = 0,
+        block: Optional[OneBlock] = None,
     ):
         self.grids = tuple(grids)
         self.nlvls = len(self.grids)
@@ -125,7 +139,8 @@ class BlockedElasticityMG:
         self.cheby_upper = cheby_upper
         self.coarse_rtol = coarse_rtol
         self.coarse_maxit = coarse_maxit
-        self.precise = precise_dots
+        self.block = block = block or OneBlock()
+        self.dot = block.dot(precise_dots, _SPATIAL)
 
     # -- per-solve setup ------------------------------------------------ #
 
@@ -134,33 +149,40 @@ class BlockedElasticityMG:
         in the level's dtype, lmax f32; level 0 also has the f32 `eb32` of
         `op32` when the fine level is bf16.  The x == 0 rows get diagonal
         1 and Gershgorin ratio 1 (identity rows)."""
+        block = self.block
         levels = []
         E = E_fine.to(torch.float32)
         for l, g in enumerate(self.grids):
             if l > 0:
                 E = coarsen_cell_field(E)
-            d = hex_operator_diagonal(E, self.KEs[l], g.nn)
-            R = hex_operator_absrowsum(E, self.KEs[l], g.nn)
-            d[0] = 1.0
+            d = block.complete(hex_operator_diagonal(E, self.KEs[l], g.nn))
+            R = block.complete(hex_operator_absrowsum(E, self.KEs[l], g.nn))
+            if block.wall:
+                d[0] = 1.0
             ratio = R / d
-            ratio[0] = 1.0
+            if block.wall:
+                ratio[0] = 1.0
             op = self.ops[l]
             levels.append({
                 "eb": op.prepare_coef(E),
                 "dinv": op.to_blocked(1.0 / d),
-                "lmax": torch.max(ratio),
+                "lmax": block.max(torch.max(ratio)),
             })
             if l == 0 and self.op32 is not op:
                 levels[0]["eb32"] = self.op32.prepare_coef(E)
         return levels
 
-    def _A(self, l: int, eb):
-        op = self.ops[l]
-        return lambda v: op.apply(v, eb)
+    def _apply(self, op: BlockedHexOperator, eb):
+        """The solver's operator of `op`'s level: K1, with the wall masked
+        in its pass where the block holds it, completed across blocks."""
+        kv = op.apply if self.block.wall else op.matvec
+        return lambda v: self.block.complete(kv(v, eb), _SPATIAL)
 
-    def _dot(self, l: int):
-        op = self.ops[l]
-        return lambda a, b: op.dot(a, b, self.precise)
+    def _A(self, l: int, eb):
+        return self._apply(self.ops[l], eb)
+
+    def _mask0(self, vb: torch.Tensor) -> torch.Tensor:
+        return mask0(vb) if self.block.wall else vb
 
     # -- V-cycle -------------------------------------------------------- #
 
@@ -174,8 +196,7 @@ class BlockedElasticityMG:
             return pcg_x(
                 A, b, torch.zeros_like(b), lambda r: lvl["dinv"] * r,
                 predicated=predicated, rtol=self.coarse_rtol,
-                maxiter=self.coarse_maxit, flexible=False,
-                dot=self._dot(l),
+                maxiter=self.coarse_maxit, flexible=False, dot=self.dot,
             )
 
         def smooth(bb, xx, **kw):
@@ -189,9 +210,9 @@ class BlockedElasticityMG:
         r = b - A(x)
         # each transfer in the dtype of the level it leaves
         opc = self.ops[l + 1]
-        rc = opc.mask0(restrict(r, _SPATIAL).to(opc.dtype))
+        rc = self._mask0(self.block.restrict(r, _SPATIAL).to(opc.dtype))
         ec = self.vcycle(levels, rc, l + 1, predicated=predicated)
-        x = x + op.mask0(prolong(ec, _SPATIAL).to(op.dtype))
+        x = x + self._mask0(prolong(ec, _SPATIAL).to(op.dtype))
         return smooth(b, x)
 
     # -- outer solve ---------------------------------------------------- #
@@ -205,15 +226,10 @@ class BlockedElasticityMG:
         def V(r):
             return self.vcycle(levels, r, predicated=predicated)
 
-        def dot(a, b):
-            return op32.dot(a, b, self.precise)
-
+        dot = self.dot
         if op32 is self.ops[0]:
             return self._A(0, levels[0]["eb"]), V, dot
-        eb32 = levels[0]["eb32"]
-
-        def A(v):
-            return op32.apply(v, eb32)
+        A = self._apply(op32, levels[0]["eb32"])
 
         def M(r):
             z = V(r.to(self.mg_dtype)).to(r.dtype)

@@ -22,6 +22,18 @@ trip.
 
 Dot products sum f32 products in f64 when `precise_dots`.
 
+With f32 sums (`precise_dots` off on an f32 field) the flexible step
+length is the exact line search along p, alpha = r.p / p.Ap, where the
+JAX package's, which the f64 sums keep, is r.z / p.Ap.  The two agree
+while r is orthogonal to the last direction; f32 sums leave alpha wrong
+at f32's precision, so once a solve reaches that precision (a PDE-filter
+solve of a uniform design does in one iteration, below `-pde_rtol 1e-8`)
+r keeps a part along the last direction, r.z no longer equals r.p, and
+the step overshoots by a growing factor: the residual of the 33x17x9
+`-filter 2 -precise_dots 0` filter solve grew about threefold per
+iteration to NaN.  r.p puts the error of each step into the next step's
+length instead, and that solve converges in 3 iterations.
+
 `compress` (a dtype) stores what the iteration keeps between steps in
 less precision, as the JAX package's `pcg` does with its `p_compress` and
 `flex_compress` both set (the reduced-precision V-cycle's outer solve,
@@ -84,6 +96,16 @@ def _default_dot(dot, precise_dots):
     return dot
 
 
+def _dots(dot, pairs):
+    """The dots of `pairs`, in one reduction through `dot.many` where the
+    dot has it (over the ranks of `-mesh_shape`: parallel/spmd.py), else
+    one by one."""
+    many = getattr(dot, "many", None)
+    if many is None:
+        return [dot(a, b) for a, b in pairs]
+    return many(pairs)
+
+
 def pcg_start(A, b, x0, M=None, *, precise_dots: bool = True,
               dot: Optional[Callable] = None,
               compress=None) -> PCGState:
@@ -92,9 +114,9 @@ def pcg_start(A, b, x0, M=None, *, precise_dots: bool = True,
     dot = _default_dot(dot, precise_dots)
     r = b - A(x0)
     z = M(r)
-    rz = dot(r, z)
-    bnorm = torch.sqrt(dot(b, b))
-    rnorm = torch.sqrt(dot(r, r))
+    rz, bb, rr = _dots(dot, [(r, z), (b, b), (r, r)])
+    bnorm = torch.sqrt(bb)
+    rnorm = torch.sqrt(rr)
     k = torch.zeros((), dtype=torch.int32, device=b.device)
     p = z if compress is None else z.to(compress)
     return PCGState(x0, r, p, rz, rnorm, bnorm, k)
@@ -106,27 +128,31 @@ def _tol(bnorm, rtol, atol):
 
 def _body(A, M, s: PCGState, flexible, dot, compress=None):
     """One iteration from carry s: (x, r, p, rz, rnorm).  alpha and beta
-    are rounded to the field dtype before use, as in the JAX package."""
+    are rounded to the field dtype before use, as in the JAX package;
+    alpha is the line search's under f32 sums (module docstring)."""
     vdt = s.x.dtype
     p = s.p.to(vdt)
     Ap = A(p)
-    pAp = dot(p, Ap)
-    alpha = (s.rz / pAp).to(vdt)
+    if flexible and s.rz.dtype == torch.float32:
+        pAp, num = _dots(dot, [(p, Ap), (s.r, p)])
+    else:
+        pAp, num = dot(p, Ap), s.rz
+    alpha = (num / pAp).to(vdt)
     x = s.x + alpha * p
     r = s.r - alpha * Ap
     if flexible and compress is not None:
         Ap = Ap.to(compress)
     z = M(r)
     if flexible:
-        beta_num = -alpha * dot(z, Ap.to(z.dtype))
+        zAp, rz, rr = _dots(dot, [(z, Ap.to(z.dtype)), (r, z), (r, r)])
+        beta_num = -alpha * zAp
     else:
-        beta_num = dot(z, r)
-    rz = dot(r, z)
+        beta_num, rz, rr = _dots(dot, [(z, r), (r, z), (r, r)])
     beta = (beta_num / s.rz).to(vdt)
     p = z + beta * p
     if compress is not None:
         p = p.to(compress)
-    rnorm = torch.sqrt(dot(r, r))
+    rnorm = torch.sqrt(rr)
     return x, r, p, rz, rnorm
 
 

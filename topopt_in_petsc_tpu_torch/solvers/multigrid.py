@@ -32,6 +32,14 @@ package's reduced-precision V-cycle), with the eigenvalue bound and the
 element coefficients kept in the field dtype: K4 widens its bf16 input and
 rounds its result, the plain forms compute in bf16 as the JAX package's
 XLA forms do.
+
+`OneBlock` holds the hooks by which a solver's vectors, kept on one block
+of the grid, meet the rest of it: completing an operator's partial sums,
+the restriction, reductions, the dot, the levels that run a kernel and
+whether the block holds the clamped wall.  On one device the block is
+the whole grid and every hook is the plain operation; under
+`-mesh_shape` each rank passes its `parallel/spmd.py::MeshBlock` to the
+same solvers (this class, solvers/blocked_mg.py, opt/pde_filter.py).
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ from topopt_in_petsc_tpu_torch.ops.nodal_hex import (
     make_helmholtz_apply,
     make_nodal_hex_apply,
 )
-from topopt_in_petsc_tpu_torch.solvers.cg import pcg_x
+from topopt_in_petsc_tpu_torch.solvers.cg import _dot, pcg_x
 from topopt_in_petsc_tpu_torch.solvers.chebyshev import (
     chebyshev_smooth,
     gershgorin_lambda_max,
@@ -117,6 +125,42 @@ def coarsen_cell_field(E: torch.Tensor) -> torch.Tensor:
     return E * 0.125
 
 
+NODAL = (0, 1, 2)  # the spatial axes of a nodal (nx, ny, nz, dof) field
+
+
+class OneBlock:
+    """The solvers' hooks when the block is the whole grid (one device)."""
+
+    # the block holds the cantilever's clamped wall (the x = 0 plane)
+    wall = True
+    # the `-operator_impl` values whose PDE filter applies the plain
+    # operator (opt/pde_filter.py); float64 always does
+    plain_filter_impls = ("xla",)
+
+    def hierarchy(self, grid, nlvls: int):
+        """The block's fine-to-coarse grids."""
+        return grid.hierarchy(nlvls)
+
+    def kernel_levels(self, nlvls: int, on: bool) -> List[bool]:
+        """The levels that apply the kernel when the route has one (`on`)."""
+        return [on] * nlvls
+
+    def complete(self, v: torch.Tensor, axes=NODAL) -> torch.Tensor:
+        """An operator's result, its partial sums completed (in place)."""
+        return v
+
+    def restrict(self, r: torch.Tensor, axes=NODAL) -> torch.Tensor:
+        return restrict(r, axes)
+
+    def max(self, v: torch.Tensor) -> torch.Tensor:
+        """The maximum of a 0-d tensor over the blocks."""
+        return v
+
+    def dot(self, precise: bool, axes=NODAL) -> Callable:
+        """The inner product of two vectors of the block's layout."""
+        return lambda a, b: _dot(a, b, precise)
+
+
 class PlainApply:
     """A level's operator in plain torch, with the kernel wrappers'
     interface (`prepare_coef`, `apply_prepared`): the hex operator with
@@ -147,6 +191,8 @@ class GeometricMultigrid:
     masks: per-level (nx, ny, nz, dof) 0/1 Dirichlet masks (numpy), or
            None (a pure Neumann problem: the Helmholtz filter).
     plain: plain torch operators instead of the kernels K3/K4.
+    block: the hooks of the block the vectors hold (`OneBlock`); grids
+           and masks are the block's.
     """
 
     def __init__(
@@ -167,6 +213,7 @@ class GeometricMultigrid:
         coarse_op: str = "rediscretize",
         precond_dtype=None,
         plain: bool = False,
+        block: Optional[OneBlock] = None,
     ):
         if coarse_op not in ("rediscretize", "galerkin_octant"):
             raise ValueError(f"unknown coarse_op {coarse_op!r}")
@@ -191,11 +238,13 @@ class GeometricMultigrid:
                     **fdt)
                 for l in range(1, self.nlvls)
             ]
+        self.block = block = block or OneBlock()
+        kernels = block.kernel_levels(self.nlvls, not plain)
         make = {1: make_helmholtz_apply, 3: make_nodal_hex_apply}[dof]
         self.level_applies = [
             PlainApply(self.KEps[l], octant=True) if self._octant(l)
-            else PlainApply(self.KEs[l]) if plain
-            else make(g.nn, KEs[l])
+            else make(g.nn, KEs[l]) if kernels[l]
+            else PlainApply(self.KEs[l])
             for l, g in enumerate(self.grids)
         ]
         # per vector dtype: the per-level masks N and 1 - N
@@ -211,7 +260,7 @@ class GeometricMultigrid:
         self.cheby_upper = cheby_upper
         self.coarse_rtol = coarse_rtol
         self.coarse_maxit = coarse_maxit
-        self.precise_dots = precise_dots
+        self.dot = block.dot(precise_dots)
 
     def _octant(self, level: int) -> bool:
         return self.KEps[level] is not None
@@ -219,14 +268,16 @@ class GeometricMultigrid:
     def apply(self, level: int, coef: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
         """A_l v = N (K_l (N v)) + (I - N) v (LinearElasticity.cc:530-538,
-        applied matrix-free at every level); `coef` is the level's
-        prepared element coefficient (`setup`)."""
+        applied matrix-free at every level), K_l completed across the
+        blocks; `coef` is the level's prepared element coefficient
+        (`setup`)."""
         ap = self.level_applies[level]
+        complete = self.block.complete
         if self._masks is None:
-            return ap.apply_prepared(v.contiguous(), coef)
+            return complete(ap.apply_prepared(v.contiguous(), coef))
         masks, unmasks = self._masks[v.dtype]
         N = masks[level]
-        Kv = ap.apply_prepared(N * v, coef)
+        Kv = complete(ap.apply_prepared(N * v, coef))
         return N * Kv + unmasks[level] * v
 
     def _level_coefs(self, scale_fine: torch.Tensor) -> List[torch.Tensor]:
@@ -244,7 +295,9 @@ class GeometricMultigrid:
         """Per-level {coef, dinv, lmax} from the fine element scale: coef
         and lmax in the field dtype, dinv in the V-cycle's dtype.  lmax is
         the certain Gershgorin bound; masked rows are identity rows
-        (diagonal 1, ratio 1)."""
+        (diagonal 1, ratio 1).  The diagonal and the absolute row sums are
+        completed across the blocks, the bound is their maximum."""
+        block = self.block
         levels = []
         for l, E in enumerate(self._level_coefs(scale_fine)):
             nn = self.grids[l].nn
@@ -254,6 +307,7 @@ class GeometricMultigrid:
             else:
                 d = hex_operator_diagonal(E, self.KEs[l], nn)
                 R = hex_operator_absrowsum(E, self.KEs[l], nn)
+            d, R = block.complete(d), block.complete(R)
             mask = None
             if self._masks is not None:
                 masks, unmasks = self._masks[self.dtype]
@@ -262,7 +316,7 @@ class GeometricMultigrid:
             levels.append({
                 "coef": self.level_applies[l].prepare_coef(E),
                 "dinv": (1.0 / d).to(self.vdt),
-                "lmax": gershgorin_lambda_max(R, d, mask),
+                "lmax": block.max(gershgorin_lambda_max(R, d, mask)),
             })
         return levels
 
@@ -278,8 +332,7 @@ class GeometricMultigrid:
             return pcg_x(
                 A, b, torch.zeros_like(b), lambda r: lvl["dinv"] * r,
                 predicated=predicated, rtol=self.coarse_rtol,
-                maxiter=self.coarse_maxit, flexible=False,
-                precise_dots=self.precise_dots,
+                maxiter=self.coarse_maxit, flexible=False, dot=self.dot,
             )
 
         def smooth(bb, xx, **kw):
@@ -292,7 +345,7 @@ class GeometricMultigrid:
         # presmooth from zero: skip the A(0) application
         x = smooth(b, b, x_is_zero=True)
         r = b - A(x)
-        rc = self._masked(level + 1, restrict(r))
+        rc = self._masked(level + 1, self.block.restrict(r))
         ec = self.vcycle(levels, rc, level + 1, predicated=predicated)
         x = x + self._masked(level, prolong(ec))
         return smooth(b, x)
