@@ -9,13 +9,14 @@ Phases, each printing its lines before the next starts:
   3. kernel parity: each kernel against its plain PyTorch version on the
      card at 9x7x5, 65x33x33, 13x11x7, the tile edges 9x9x33 and
      13x11x37, and the coarse levels 17^3 and 33^3, then on every local
-     block that phases 21-22's meshes give a kernel at any level, with
+     block that phases 21-25's meshes give a kernel at any level, with
      the element matrix of the level's global grid (129x257x257 down to
      9x17x17 of 257^3 on mesh (2,1,1), 17x9x9, 9x5x5 and 5x3x3 of
      33x17x17 on (2,2,2), 9x9x9 and 5x5x5 of 33x17x9 on (4,2,1) and of
-     17^3 on (2,2,2); K1 with and without the x = 0 mask, as the ranks
-     at x-coordinate 0 and the others run it) (rtol 2e-5, atol 1e-5
-     of max|ref|, the JAX package's bar for its Pallas kernels; K1's
+     17^3 on (2,2,2), 17x9x17, 9x5x9 and 5x3x5 of 33x17x17 on (2,2,1),
+     9x9x9 and 5x5x5 of 17x9x9 on (2,1,1)); K1 with and without the
+     x = 0 mask, as the ranks at x-coordinate 0 and the others run it)
+     (rtol 2e-5, atol 1e-5 of max|ref|, the JAX package's bar for its Pallas kernels; K1's
      bf16-storage build, K1-bf16, rtol 2^-7: both round once to bf16);
      two launches of each of K1-K4 and K1-bf16 bitwise equal (no
      atomics); and, for element matrices without the brick's reflection
@@ -59,7 +60,8 @@ Phases, each printing its lines before the next starts:
      captured, peak memory, and s/iteration beside the split driver's
      (phases 6 and 9); first of the default path, then (after its
      profile) of the nodal and the -filter 2 paths;
- 15. a torch.profiler window over one steady iteration of the split and
+ 15. a torch.profiler window (utils/profiling.py `trace_to`, which
+     `-profile_dir` runs) over one steady iteration of the split and
      of the fused driver at 65x33x33 and at 257^3, and of the fused nodal
      and -filter 2 paths at 257^3: host launch calls, kernels on the
      device, device-to-host copies, host synchronizations, and the
@@ -106,7 +108,7 @@ Phases, each printing its lines before the next starts:
  21. the multi-device engine (-mesh_shape), its ranks sharing the card
      over gloo: the CLI in a subprocess (which spawns its ranks) under a
      300 s timeout, for the three variants of the JAX package's
-     __graft_entry__.py::dryrun_multichip at 8 ranks, 3 iterations each,
+     __graft_entry__.py::dryrun_multichip at 8 ranks, 2 iterations each,
      with its f32 sums (-precise_dots 0):
      mesh (2,2,2) 33x17x17 3 levels on the default route (K1) and on
      -operator_impl pallas (K4), mesh (4,2,1) 33x17x9 with -filter 2
@@ -119,15 +121,31 @@ Phases, each printing its lines before the next starts:
  22. 257^3 on mesh (2,1,1) (129x257x257 nodes per rank), 2 iterations of
      the default route: iteration-1 compliance within 1e-3 of the golden,
      solver iterations within 1 of its 27, K1 and K2 launched on both
-     ranks, s/iteration beside phase 6's and each rank's peak memory.
+     ranks, s/iteration beside phase 6's and each rank's peak memory;
+ 23. the single-device solvers' options on a mesh: 33x17x17 on mesh
+     (2,2,1), 4 ranks, 3 iterations each of -mg_dtype bfloat16, -mg_dtype
+     mixed -mg_fine_post 2, -coarse_op galerkin_octant, -ksp_type fgmres
+     (resident) and -ksp_type fgmres -operator_impl pallas, each held to
+     the single-card -fused 1 run as phase 21's, every rank launching its
+     route's kernels (K1-bf16 under bf16, K4 under galerkin);
+ 24. 257^3 on mesh (2,1,1), iteration 1 of -mg_dtype bfloat16 and of
+     -ksp_type fgmres: fx within 1e-3 of the golden, solver iterations
+     within 12 of the single card's 83 (bf16) and within 1 of its 18
+     (FGMRES), s/iteration, peak memory and communication by rank;
+ 25. -profile_dir: the fused 65x33x33 run, 4 iterations, traced (device
+     events of K1 and K2 in the trace, fx on its history), 17x9x9 on mesh
+     (2,1,1) with one trace per rank (K1's device events in each),
+     utils' speed_of_light_spmv for phase 4's 257^3 K1 time beside
+     ops/roofline.py's bound, and the fused -filter 2 step's PDE-solve
+     iterations against the eager solves of the same fields.
 A failed mesh run prints its output's last lines (the launcher prints
 every rank's last 40 on a failure) and raises.
 A CUDA graph's replay counts the kernel launches it recorded
 (ops/cuda_build.py); phase 15 holds that count to the device's own
 record.  Then one JSON line of per-kernel results, whose
 launch counts are the fused paths' (phases 10-12, K1-bf16's phase 16's
-fused resident run; K1-K4 also carry `mesh_launches`, their launches summed
-over the ranks of phases 21-22) and whose bounds are
+fused resident run; every kernel also carries `mesh_launches`, its
+launches summed over the ranks of phases 21-24) and whose bounds are
 topopt_in_petsc_tpu_torch/ops/roofline.py's for phase 4's inputs, and,
 last, the JSON status line.  Any failure raises: the exit code is
 nonzero and no status line is printed.  Nothing falls back to the CPU or
@@ -151,10 +169,11 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PARITY_SHAPES = ((9, 7, 5), (65, 33, 33), (13, 11, 7), (9, 9, 33),
                  (13, 11, 37), (17, 17, 17), (33, 33, 33))
-# phases 21-22's meshes: (global nodes, mesh, levels); phase 3 holds the
+# phases 21-25's meshes: (global nodes, mesh, levels); phase 3 holds the
 # kernels to their plain versions on every level's local block
 MESH_GRIDS = (((257, 257, 257), (2, 1, 1), 5), ((33, 17, 17), (2, 2, 2), 3),
-              ((33, 17, 9), (4, 2, 1), 2), ((17, 17, 17), (2, 2, 2), 2))
+              ((33, 17, 9), (4, 2, 1), 2), ((17, 17, 17), (2, 2, 2), 2),
+              ((33, 17, 17), (2, 2, 1), 3), ((17, 9, 9), (2, 1, 1), 2))
 # the bitwise repeats at these shapes (tile edges on every axis)
 REPEAT_SHAPES = ((13, 11, 37), (65, 33, 33))
 LEVELS_257 = ((257,) * 3, (129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3)
@@ -767,14 +786,19 @@ def _grid_query(name):
             }[name]
 
 
-def _trace(prof):
-    """The events of a profile as its chrome trace records them: read
-    several times faster than `prof.events()` builds its event tree."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f).get("traceEvents", [])
+def _trace_events(logdir):
+    """The events of the chrome trace that `utils/profiling.py::trace_to`
+    wrote under `logdir`: read several times faster than `prof.events()`
+    builds its event tree."""
+    from topopt_in_petsc_tpu_torch.utils.profiling import TRACE_FILE
+
+    with open(os.path.join(logdir, TRACE_FILE)) as f:
+        return json.load(f).get("traceEvents", [])
+
+
+def _device_kernels(events):
+    """The kernels the device ran, among a trace's events."""
+    return [e for e in events if e.get("cat") == "kernel" and "name" in e]
 
 
 def _by_level(kernels, levels):
@@ -827,19 +851,19 @@ def _profile(run_once, levels=None, top=0):
     replays included); with `levels` (kernel name -> grid sizes), those
     kernels' runs and device time per level; with `top`, the runs and
     device ms of the `top` kernels that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from topopt_in_petsc_tpu_torch.utils.profiling import trace_to
 
     kernels = _kernel_objects()
     torch.cuda.synchronize()
     before = {n: k.launches for n, k in kernels.items()}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_once()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    ev = [e for e in _trace(prof) if "name" in e]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace_to(tmp, torch.device("cuda", 0)):
+            t0 = time.perf_counter()
+            run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
+        ev = [e for e in _trace_events(tmp) if "name" in e]
     dev = [e for e in ev if e.get("cat") in _DEVICE_CATS]
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in dev)
     busy, end = 0.0, -1.0
@@ -848,7 +872,7 @@ def _profile(run_once, levels=None, top=0):
             busy += b - max(a, end)
             end = b
     busy *= 1e-6
-    on_gpu = [e for e in dev if e["cat"] == "kernel"]
+    on_gpu = _device_kernels(dev)
     counted = {n: k.launches - before[n] for n, k in kernels.items()}
     on_device = {n: sum(any(s in e["name"] for s in names) for e in on_gpu)
                  for n, names in _DEVICE_NAMES.items()}
@@ -869,7 +893,8 @@ def _profile(run_once, levels=None, top=0):
         "syncs": sum(e["name"].endswith("Synchronize") for e in host),
         "wall_s": round(wall, 4), "busy_s": round(busy, 4),
         "idle_share": round(1.0 - busy / wall, 3),
-        # host seconds spent reading the profile after the window
+        # host seconds spent closing the window (the trace written) and
+        # reading the profile
         "read_s": round(time.perf_counter() - t1, 1),
     }
 
@@ -1270,6 +1295,12 @@ def _run_mesh(tag, args, workdir):
         return {k: h[k] for k in h.files}, ranks, seconds
 
 
+def _by_rank(ranks):
+    """Each rank's launches and peak memory, for a log line."""
+    return {r: (c, f"{p} B ({p / 2**30:.2f} GiB)")
+            for r, (c, p) in sorted(ranks.items())}
+
+
 def _check_ranks(tag, ranks, world, names):
     """Every rank reported, and launched each kernel of `names`."""
     if sorted(ranks) != list(range(world)):
@@ -1282,36 +1313,55 @@ def _check_ranks(tag, ranks, world, names):
                              f"launched on every rank: {low}")
 
 
+MESH_NAMES = ("K1", "K2", "K3", "K4", "K1-bf16")
+
+
+def _add_launches(total, ranks):
+    """`total` plus each rank's launches of every kernel."""
+    for c, _ in ranks.values():
+        for n in total:
+            total[n] += c.get(n, 0)
+    return total
+
+
+def _mesh_against_one_card(tag, flags, shape, names, common, total):
+    """The mesh run of `flags` on `shape` against the single-card -fused 1
+    run with the same flags: fx within 1e-4 at iteration 1 and 1e-3 at
+    every iteration, solver iterations within 1, never stalled, every
+    rank launched each kernel of `names`; adds the ranks' launches to
+    `total`."""
+    world = int(np.prod([int(v) for v in shape.split(",")]))
+    with tempfile.TemporaryDirectory() as tmp:
+        h, ranks, seconds = _run_mesh(
+            tag, [*flags, *common, "-mesh_shape", shape], tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _run_cli([*flags, *common, "-fused", "1"], tmp)
+    n = len(ref["fx"])
+    rel = np.abs(h["fx"] / ref["fx"] - 1)
+    dit = int(np.max(np.abs(h["iters"] - ref["iters"])))
+    log(f"[{tag}] mesh {shape}, {world} ranks: fx {h['fx'].tolist()} "
+        f"against -fused 1 {ref['fx'].tolist()}: rel {rel.tolist()} "
+        f"(bars 1e-4 at it. 1, 1e-3); solver iterations "
+        f"{h['iters'].tolist()} and {ref['iters'].tolist()}; stalled "
+        f"{h['stalled'].tolist()}; s/iteration {h['time'].tolist()}; "
+        f"the run took {seconds:.1f} s; launches by rank "
+        f"{ {r: c for r, (c, _) in sorted(ranks.items())} }")
+    if (len(h["fx"]) != n or not np.isfinite(h["fx"]).all()
+            or rel[0] > 1e-4 or rel.max() > 1e-3 or dit > 1
+            or h["stalled"].any()):
+        raise AssertionError(f"{tag}: the mesh run is off the "
+                             "single-card run or stalled")
+    _check_ranks(tag, ranks, world, names)
+    return _add_launches(total, ranks)
+
+
 def phase_mesh_variants():
     """Phase 21; returns the launch counts summed over ranks and runs."""
-    total = {n: 0 for n in ("K1", "K2", "K3", "K4")}
-    common = ["-ksp_maxit", "30", "-maxItr", "3", "-output_cadence_vtu",
+    total = {n: 0 for n in MESH_NAMES}
+    common = ["-ksp_maxit", "30", "-maxItr", "2", "-output_cadence_vtu",
               "0", "-restart", "0", "-precise_dots", "0"]
     for tag, flags, shape, names in MESH_VARIANTS:
-        world = int(np.prod([int(v) for v in shape.split(",")]))
-        with tempfile.TemporaryDirectory() as tmp:
-            h, ranks, seconds = _run_mesh(
-                tag, [*flags, *common, "-mesh_shape", shape], tmp)
-        with tempfile.TemporaryDirectory() as tmp:
-            ref = _run_cli([*flags, *common, "-fused", "1"], tmp)
-        rel = np.abs(h["fx"] / ref["fx"] - 1)
-        dit = int(np.max(np.abs(h["iters"] - ref["iters"])))
-        log(f"[{tag}] mesh {shape}, {world} ranks: fx {h['fx'].tolist()} "
-            f"against -fused 1 {ref['fx'].tolist()}: rel {rel.tolist()} "
-            f"(bars 1e-4 at it. 1, 1e-3); solver iterations "
-            f"{h['iters'].tolist()} and {ref['iters'].tolist()}; stalled "
-            f"{h['stalled'].tolist()}; s/iteration {h['time'].tolist()}; "
-            f"the run took {seconds:.1f} s; launches by rank "
-            f"{ {r: c for r, (c, _) in sorted(ranks.items())} }")
-        if (len(h["fx"]) != 3 or not np.isfinite(h["fx"]).all()
-                or rel[0] > 1e-4 or rel.max() > 1e-3 or dit > 1
-                or h["stalled"].any()):
-            raise AssertionError(f"{tag}: the mesh run is off the "
-                                 "single-card run or stalled")
-        _check_ranks(tag, ranks, world, names)
-        for c, _ in ranks.values():
-            for n in total:
-                total[n] += c[n]
+        _mesh_against_one_card(tag, flags, shape, names, common, total)
     return total
 
 
@@ -1329,16 +1379,179 @@ def phase_mesh_257(split_times, total):
         f"s/iteration {h['time'].tolist()} (single card, phase 6: "
         f"{split_times}), the run took {seconds:.1f} s; by rank: "
         f"launches and max_memory_allocated "
-        f"{ {r: (c, f'{p} B ({p / 2**30:.2f} GiB)') for r, (c, p) in sorted(ranks.items())} }")
+        f"{_by_rank(ranks)}")
     if (len(h["fx"]) != 2 or not np.isfinite(h["fx"]).all() or d > 1e-3
             or abs(int(h["iters"][0]) - GOLDEN_257_ITERS1) > 1
             or h["stalled"].any()):
         raise AssertionError(f"{tag}: off the golden or stalled")
     _check_ranks(tag, ranks, 2, ("K1", "K2"))
-    for c, _ in ranks.values():
-        for n in total:
-            total[n] += c[n]
+    return _add_launches(total, ranks)
+
+
+# phase 23: the options of the single-device solvers on a mesh, each with
+# the kernels its route launches on every rank (K1 is the bf16 runs'
+# outer f32 operator; galerkin_octant runs K4 at the fine level only)
+MESH_OPTIONS = (
+    ("23 bf16", ["-mg_dtype", "bfloat16"], ("K1-bf16", "K1", "K2")),
+    ("23 mixed fine_post 2", ["-mg_dtype", "mixed", "-mg_fine_post", "2"],
+     ("K1-bf16", "K1", "K2")),
+    ("23 galerkin", GALERKIN, ("K4", "K2")),
+    ("23 fgmres", FGMRES, ("K1", "K2")),
+    ("23 fgmres pallas", [*FGMRES, "-operator_impl", "pallas"],
+     ("K4", "K2")),
+)
+# phase 24: the single card's solver iterations at 257^3, iteration 1
+# (phases 17 and 20), and how far the mesh's may stray: 15% of the bf16
+# count, whose V-cycle rounds the shared planes' sums on each rank before
+# they are added (one card rounds the whole sum once), and 1 for FGMRES
+BF16_257_ITERS1, FGMRES_257_ITERS1 = 83, 18
+MESH_257_OPTIONS = (
+    ("24 257^3 mesh bf16", ["-mg_dtype", "bfloat16"],
+     ("K1-bf16", "K1", "K2"), BF16_257_ITERS1, 12),
+    ("24 257^3 mesh fgmres", FGMRES, ("K1", "K2"), FGMRES_257_ITERS1, 1),
+)
+
+
+def phase_mesh_options(total):
+    """Phase 23: 33x17x17 on mesh (2,2,1), 3 iterations of each of
+    `MESH_OPTIONS`, held to the single-card -fused 1 run."""
+    grid = ["-nx", "33", "-ny", "17", "-nz", "17", "-nlvls", "3", "-rmin",
+            "0.16"]
+    common = ["-maxItr", "3", "-output_cadence_vtu", "0", "-restart", "0"]
+    for tag, flags, names in MESH_OPTIONS:
+        _mesh_against_one_card(tag, [*grid, *flags], "2,2,1", names, common,
+                               total)
     return total
+
+
+def phase_mesh_options_257(split_times, total):
+    """Phase 24: 257^3 on mesh (2,1,1), iteration 1 of the bf16 V-cycle
+    and of FGMRES: fx within 1e-3 of the golden, solver iterations within
+    their gap of the single card's, the route's kernels on both ranks;
+    s/iteration, peak memory and communication by rank."""
+    for tag, flags, names, iters, gap in MESH_257_OPTIONS:
+        with tempfile.TemporaryDirectory() as tmp:
+            h, ranks, seconds = _run_mesh(
+                tag, [*_size_args(257), "-maxItr", "1", "-output_cadence_vtu",
+                      "0", "-restart", "0", "-mesh_shape", "2,1,1", *flags],
+                tmp)
+        d = abs(h["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
+        log(f"[{tag}] fx {h['fx'].tolist()}, rel diff to golden {d:.3e}, "
+            f"solver iterations {h['iters'].tolist()} (single card: {iters}, "
+            f"bar {gap}), stalled {h['stalled'].tolist()}, s/iteration "
+            f"{h['time'].tolist()} (f32 single card, phase 6: "
+            f"{split_times}), the run took {seconds:.1f} s; by rank: "
+            f"launches and max_memory_allocated "
+            f"{_by_rank(ranks)}")
+        if (len(h["fx"]) != 1 or not np.isfinite(h["fx"]).all() or d > 1e-3
+                or abs(int(h["iters"][0]) - iters) > gap
+                or h["stalled"].any()):
+            raise AssertionError(f"{tag}: off the golden, off the single "
+                                 "card's iterations or stalled")
+        _check_ranks(tag, ranks, 2, names)
+        _add_launches(total, ranks)
+    return total
+
+
+def _kernel_events(events, name):
+    """The device's runs of kernel `name` among a trace's events."""
+    return [e for e in _device_kernels(events)
+            if any(s in e["name"] for s in _DEVICE_NAMES[name])]
+
+
+def _pde_trips_against_eager():
+    """The fused -filter 2 step's PDE-solve iterations (`pde_iters`, the
+    `# PDE filter iterations` line of the fused driver) at 65x33x33,
+    iterations 1-3 with its stages eager, against the eager solve
+    (opt/pde_filter.py `_solve`) of each field from the same warm start:
+    equal."""
+    from topopt_in_petsc_tpu_torch.config import TopOptConfig
+    from topopt_in_petsc_tpu_torch.parallel.fused_step import make_fused_step
+
+    step, state = make_fused_step(
+        TopOptConfig.from_args(["-fused", "1", "-filter", "2"]),
+        graphs=False)
+    pdef, calls, start = step.pdef, [], step.pdef.start
+
+    def recording_start(x):
+        calls.append((x.clone(), pdef._u.clone()))
+        return start(x)
+
+    pdef.start = recording_start
+    xt, xp = step.project(state.x, state.beta)
+    state.xTilde.copy_(xt)
+    state.xPhys.copy_(xp)
+    trips = []
+    for itr in (1, 2, 3):
+        calls.clear()
+        step(state, itr)
+        fused = step.pde_iters.tolist()
+        eager = [int(pdef._solve(x, u0)[2]) for x, u0 in calls]
+        trips.append((fused, eager))
+        if fused != eager or len(fused) != 3:
+            raise AssertionError(f"25 pde trips: the fused step's PDE "
+                                 f"iterations {fused} differ from the "
+                                 f"eager solves' {eager}")
+    log(f"[25 pde trips] 65x33x33 -fused 1 -filter 2, iterations 1-3, "
+        f"PDE-solve iterations (dfdx, dgdx, design) fused and eager: "
+        f"{trips}")
+
+
+def phase_profile_dir(times):
+    """Phase 25, `-profile_dir`: the fused 65x33x33 run, 4 iterations,
+    traced (its fx against the JAX fused history's first 4 at the history
+    bar; device events of K1 and K2 in the trace); 17x9x9 on mesh
+    (2,1,1), 2 iterations, one trace per rank, each with K1's device
+    events; `speed_of_light_spmv` of phase 4's 257^3 K1 time beside
+    ops/roofline.py's bound; the fused -filter 2 step's PDE-solve
+    iterations against the eager solves."""
+    from topopt_in_petsc_tpu_torch.ops.roofline import bound_ms
+    from topopt_in_petsc_tpu_torch.utils import speed_of_light_spmv
+
+    ref = _load_history("jax_cpu_history_65x33x33_fused.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        t0 = time.perf_counter()
+        h = _run_cli(["-fused", "1", "-maxItr", "4", "-output_cadence_vtu",
+                      "0", "-restart", "0", "-profile_dir", prof],
+                     os.path.join(tmp, "run"))
+        seconds = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(prof, "trace.json"))
+        ev = _trace_events(prof)
+    runs = {n: len(_kernel_events(ev, n)) for n in ("K1", "K2")}
+    rel = np.abs(h["fx"] / ref["fx"][:4] - 1)
+    log(f"[25 profile_dir] 65x33x33 -fused 1, 4 iterations traced in "
+        f"{seconds:.1f} s: trace {size} B, {len(ev)} events, device runs "
+        f"{runs}; fx {h['fx'].tolist()} rel to the JAX fused history "
+        f"{rel.tolist()} (bar {FX_RTOL}), s/iteration {h['time'].tolist()}")
+    if min(runs.values()) <= 0 or rel.max() > FX_RTOL:
+        raise AssertionError("25: the trace lacks K1 or K2, or the traced "
+                             "run is off its history")
+    tag = "25 profile_dir mesh 2,1,1"
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        _, ranks, seconds = _run_mesh(
+            tag, ["-nx", "17", "-ny", "9", "-nz", "9", "-nlvls", "2",
+                  "-rmin", "0.16", "-maxItr", "2", "-output_cadence_vtu",
+                  "0", "-restart", "0", "-mesh_shape", "2,1,1",
+                  "-profile_dir", prof], tmp)
+        per_rank = {r: len(_kernel_events(
+            _trace_events(os.path.join(prof, f"rank{r}")), "K1"))
+            for r in (0, 1)}
+        dirs = sorted(os.listdir(prof))
+    log(f"[{tag}] trace directories {dirs}, K1 device runs by rank "
+        f"{per_rank}, launches by rank "
+        f"{ {r: c['K1'] for r, (c, _) in sorted(ranks.items())} }; the "
+        f"run took {seconds:.1f} s")
+    if dirs != ["rank0", "rank1"] or min(per_rank.values()) <= 0:
+        raise AssertionError(f"{tag}: not one trace with K1 per rank")
+    card = torch.cuda.get_device_name(0)
+    sol = speed_of_light_spmv(256**3, times["K1"][0] * 1e-3, card)
+    b, by = bound_ms("K1", (257,) * 3)
+    log(f"[25 speed of light] K1 at 257^3, {times['K1'][0]} ms on {card}: "
+        f"utils speed_of_light_spmv {json.dumps(sol)} (the JAX package's "
+        f"dense-product model); ops/roofline.py bound {b:.4f} ms by {by}")
+    _pde_trips_against_eager()
 
 
 def main() -> int:
@@ -1413,6 +1626,12 @@ def main() -> int:
     done(21)
     phase_mesh_257(split_times["default"], mesh_launches)
     done(22)
+    phase_mesh_options(mesh_launches)
+    done(23)
+    phase_mesh_options_257(split_times["default"], mesh_launches)
+    done(24)
+    phase_profile_dir(times)
+    done(25)
     src = "topopt_in_petsc_tpu_torch/csrc/"
     kernels = [
         {"name": "hex_operator (K1)", "route": "cuda",
@@ -1448,6 +1667,7 @@ def main() -> int:
          "replaces": "topopt_in_petsc_tpu/ops/blocked_hex.py:65",
          "launches": launches["K1-bf16"], "max_abs_err": errs["K1-bf16"],
          "ms": times["K1-bf16"][0], "plain_ms": times["K1-bf16"][1],
+         "mesh_launches": mesh_launches["K1-bf16"],
          **_bound("K1-bf16", times["K1-bf16"][0])},
     ]
     print(json.dumps({"kernels": kernels}))

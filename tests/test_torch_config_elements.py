@@ -83,14 +83,21 @@ def test_parsed_config_and_banner_match(argv):
     assert t.resolve_cheby_lower(t.ndof) == j.resolve_cheby_lower(t.ndof)
 
 
-@pytest.mark.parametrize("argv,item", [
-    # item 15b: the multi-device engine's options of the next slice
-    (["-mesh_shape", "2,2,2", "-ksp_type", "fgmres"], 15),
-    (["-profile_dir", "prof"], 16),
+@pytest.mark.parametrize("argv", [
+    ["-mesh_shape", "2,2,2", "-ksp_type", "fgmres"],
+    ["-mesh_shape", "2,2,2", "-mg_dtype", "bfloat16"],
+    ["-mesh_shape", "2,2,2", "-mg_dtype", "mixed", "-mg_fine_post", "2"],
+    ["-mesh_shape", "2,2,2", "-coarse_op", "galerkin_octant"],
+    ["-profile_dir", "prof"],
 ])
-def test_flags_outside_the_port_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TopOptConfig.from_args(argv)
+def test_every_flag_of_the_jax_cli_parses(argv):
+    """The flags the port took last (the multi-device engine's options,
+    `-profile_dir`) parse to the JAX package's configuration."""
+    t = TopOptConfig.from_args(argv)
+    j = JaxConfig.from_args(argv)
+    tf = {f: getattr(t, f) for f in t.__dataclass_fields__}
+    assert tf.pop("device") == "cuda"
+    assert tf == {f: getattr(j, f) for f in j.__dataclass_fields__}
 
 
 F32_ONLY = ("# operator_impl '{}': {} float32-only; using 'xla' for "

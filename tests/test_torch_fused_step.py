@@ -122,3 +122,30 @@ def test_step_updates_the_state_in_place():
     assert torch.equal(state.xo1, x0)
     assert not torch.equal(state.x, x0)
     assert int(state.solver_iters) > 0
+
+
+def test_fused_pde_iterations_equal_the_eager_solves():
+    """Under `-filter 2` the step keeps the iterations of each of its PDE
+    solves (dfdx, dgdx, the design) in `pde_iters`, which the fused driver
+    prints on a `#` line; each equals the eager solve's (opt/pde_filter.py
+    `_solve`) of the same field from the same warm start, exactly."""
+    step, state = make_fused_step(TopOptConfig(
+        **ARGS, device="cpu", filter=2, pde_nlvls=2))
+    pdef = step.pdef
+    calls = []
+    start = pdef.start
+
+    def recording_start(x):
+        calls.append((x.clone(), pdef._u.clone()))
+        return start(x)
+
+    pdef.start = recording_start
+    xt, xp = step.project(state.x, state.beta)
+    state.xTilde.copy_(xt)
+    state.xPhys.copy_(xp)
+    for itr in (1, 2, 3):
+        calls.clear()
+        step(state, itr)
+        eager = [int(pdef._solve(x, u0)[2]) for x, u0 in calls]
+        assert len(eager) == 3 and min(eager) > 0
+        assert step.pde_iters.tolist() == eager

@@ -15,9 +15,10 @@ flags.
   `SpmdDriver`'s lines printed once (by rank 0), the mesh line, one
   launch-count line per rank.
 
-Also: the options of the next slice raise under `-mesh_shape`, and
-without `-device cpu` and with no card the run raises as the single-card
-CLI does.
+Also: each option of the single-device solvers (`-mg_dtype`,
+`-mg_fine_post`, `-coarse_op`, `-ksp_type fgmres`) on mesh (2,1,1)
+against the single-device `-fused 1` run, and without `-device cpu` and
+with no card the run raises as the single-card CLI does.
 """
 
 import os
@@ -95,16 +96,40 @@ def test_float32_history_and_log_match_jax(tmp_path):
     assert ranks == list(range(8))
 
 
+MIXED_WARNING = "warning: -mg_dtype mixed needs the blocked solver"
+
+
 @pytest.mark.parametrize("flags", [
     ["-mg_dtype", "bfloat16"],
-    ["-mg_dtype", "mixed"],
+    ["-mg_dtype", "mixed", "-mg_fine_post", "2"],
     ["-coarse_op", "galerkin_octant"],
     ["-ksp_type", "fgmres"],
-])
-def test_next_slice_options_raise_under_mesh(flags):
-    with pytest.raises(NotImplementedError, match=r"item 15b\)"):
-        TopOptConfig.from_args([*FLAGS, *flags])
-    TopOptConfig.from_args(flags)  # on one device they run
+    ["-ksp_type", "fgmres", "-operator_impl", "pallas"],
+    ["-mg_dtype", "mixed", "-operator_impl", "pallas"],
+], ids=["bf16", "mixed-fine-post", "galerkin", "fgmres", "fgmres-pallas",
+        "mixed-pallas"])
+def test_mesh_options_match_single_device(flags, tmp_path, capfd):
+    """Each option of the multi-device engine on mesh (2,1,1), 3
+    iterations, against the single-device `-fused 1` run with the same
+    flags (the bars of chip_smoke.py phase 23): fx rtol 1e-4 at iteration
+    1 and 1e-3 at every iteration, solver iterations within 1, never
+    stalled; `mixed` on the nodal route warns once (rank 0), as one
+    device does, and runs the f32 V-cycle."""
+    args = ["-device", "cpu", *FLAGS[:-6], "-maxItr", "3", "-restart", "0",
+            "-output_cadence_vtu", "0", *flags]
+    ref = run_topopt(TopOptConfig.from_args(
+        [*args, "-fused", "1", "-workdir", str(tmp_path / "one")]))
+    one = capfd.readouterr().err
+    h = run_topopt(TopOptConfig.from_args(
+        [*args, "-mesh_shape", "2,1,1", "-workdir", str(tmp_path / "mesh")]))
+    mesh = capfd.readouterr().err
+    rel = np.abs(np.asarray(h["fx"]) / np.asarray(ref["fx"]) - 1)
+    assert len(rel) == 3 and rel[0] <= 1e-4 and rel.max() <= 1e-3, rel
+    assert np.max(np.abs(np.subtract(h["iters"], ref["iters"]))) <= 1
+    assert not np.any(h["stalled"])
+    nodal_mixed = "mixed" in flags and "pallas" in flags
+    assert mesh.count(MIXED_WARNING) == one.count(MIXED_WARNING) == \
+        int(nodal_mixed)
 
 
 def test_mesh_that_does_not_divide_the_grid_raises():

@@ -5,11 +5,8 @@ Same fields, defaults, CLI flags and banner as the JAX package's
 flag of the port: ``-device cuda|cpu`` (default ``cuda``, no
 auto-detection).
 
-Flags whose code path the port does not carry yet raise
-`NotImplementedError` naming the ROADMAP item that will port it:
-`-profile_dir` (item 16), and under `-mesh_shape` the reduced-precision
-V-cycle, `-coarse_op galerkin_octant` and `-ksp_type fgmres` (item 15b);
-none of them falls back silently.
+Every flag of the JAX package's CLI runs, on one device and under
+`-mesh_shape`; a value outside a flag's set raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -129,7 +126,9 @@ class TopOptConfig:
     fused: bool = False  # the fused step (parallel/fused_step.py)
     output_cadence_vtu: bool = True  # write .vtu fields like main.cc:114-116
     output_dat: bool = False  # reference-format .dat (io/mpiio_dat.py)
-    profile_dir: str = ""  # profiler trace: ROADMAP item 16
+    # a torch.profiler trace of the run (utils/profiling.py), one per
+    # rank under -mesh_shape
+    profile_dir: str = ""
     device: str = "cuda"  # "cuda" or "cpu"; no auto-detection
 
     # ----------------------------------------------------------------- #
@@ -260,12 +259,6 @@ class TopOptConfig:
                         f"PDE filter: element count {n} not divisible "
                         f"by {div} (-pde_nlvls {self.pde_nlvls})"
                     )
-        for flag, missing, item in self._not_ported():
-            if missing:
-                raise NotImplementedError(
-                    f"{flag} is not ported to topopt_in_petsc_tpu_torch yet "
-                    f"(ROADMAP.md queue 1 item {item})"
-                )
         if self.mesh:
             # the overlapping blocks (parallel/decomp.py): raises unless
             # every axis splits evenly into blocks that coarsen nlvls-1
@@ -282,19 +275,6 @@ class TopOptConfig:
     def mesh(self) -> bool:
         """Does the run go over a rank grid (`-mesh_shape` not 1,1,1)?"""
         return tuple(self.mesh_shape) != (1, 1, 1)
-
-    def _not_ported(self):
-        """(flag, requested?, ROADMAP item) for every code path the port
-        does not carry yet."""
-        return (
-            ("-profile_dir", bool(self.profile_dir), 16),
-            ("-mg_dtype bfloat16|mixed under -mesh_shape",
-             self.mesh and self.mg_dtype != "same", "15b"),
-            ("-coarse_op galerkin_octant under -mesh_shape",
-             self.mesh and self.coarse_op != "rediscretize", "15b"),
-            ("-ksp_type fgmres under -mesh_shape",
-             self.mesh and self.ksp_type == "fgmres", "15b"),
-        )
 
     # ----------------------------------------------------------------- #
     # CLI (PETSc options style: single-dash long flags; TopOpt.cc:154-165)

@@ -241,13 +241,7 @@ class Driver:
         return history
 
 
-def run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
-    if cfg.mesh:
-        # the multi-device engine, whatever -fused says, as in the JAX
-        # package; the history is rank 0's
-        from topopt_in_petsc_tpu_torch.parallel.spmd_driver import run_mesh
-
-        return run_mesh(cfg, max_iters)
+def _run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
     if cfg.fused:
         # one step call per iteration over every filter, -filter 2
         # included (the JAX package runs that on its SPMD engine)
@@ -255,3 +249,20 @@ def run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
 
         return FusedDriver(cfg).run(max_iters)
     return Driver(cfg).run(max_iters)
+
+
+def run_topopt(cfg: TopOptConfig, max_iters: Optional[int] = None) -> dict:
+    if cfg.mesh:
+        # the multi-device engine, whatever -fused says, as in the JAX
+        # package; the history is rank 0's.  Under -profile_dir each rank
+        # traces its own run (a trace here would hold only the launcher)
+        from topopt_in_petsc_tpu_torch.parallel.spmd_driver import run_mesh
+
+        return run_mesh(cfg, max_iters)
+    if cfg.profile_dir:
+        # a trace of the whole run, viewable in Perfetto
+        from topopt_in_petsc_tpu_torch.utils.profiling import trace_to
+
+        with trace_to(cfg.profile_dir, cfg.torch_device()):
+            return _run_topopt(cfg, max_iters)
+    return _run_topopt(cfg, max_iters)

@@ -102,15 +102,16 @@ class FusedDriver:
     def _scalars(self):
         """The logged scalars of the state, in one device-to-host copy:
         (fx, fscale, ch, mnd, gx[0], beta, iters, relres, PDE-filter
-        bound violation)."""
-        s = self.state
+        bound violation, the PDE solves' iterations under -filter 2)."""
+        s, step = self.state, self.step
+        pde = list(step.pde_iters.unbind()) if self.cfg.filter == 2 else []
         v = torch.stack([
             t.reshape(()).to(torch.float64)
             for t in (s.fx, s.fscale, s.ch, s.mnd, s.gx[0], s.beta,
-                      s.solver_iters, s.solver_relres, self.step.pde_viol)
-        ])
-        *vals, iters, relres, viol = v.tolist()
-        return (*vals, int(iters), relres, viol)
+                      s.solver_iters, s.solver_relres, step.pde_viol, *pde)
+        ]).tolist()
+        *vals, iters, relres, viol = v[:9]
+        return (*vals, int(iters), relres, viol, [int(k) for k in v[9:]])
 
     # ------------------------------------------------------------- #
 
@@ -138,8 +139,8 @@ class FusedDriver:
                 torch.cuda.synchronize(self.device)
             t2 = time.perf_counter()
 
-            fx, fscale, ch, mnd, gx0, beta0, iters, relres, viol = \
-                self._scalars()
+            fx, fscale, ch, mnd, gx0, beta0, iters, relres, viol, \
+                pde_iters = self._scalars()
 
             # beta continuation + reference-exact re-projection
             # (main.cc:92-98: IncreaseBeta THEN FilterProject).  xTilde
@@ -161,12 +162,16 @@ class FusedDriver:
                     )
                     mnd = float(torch.mean(4.0 * s.xPhys * (1.0 - s.xPhys)))
 
-            if cfg.filter == 2 and viol > 1e-4:
-                # bound-violation warning (Filter.cc:82-97)
-                print(
-                    "BOUND VIOLATION IN PDEFILTER - INCREASE RMIN OR "
-                    f"MESH RESOLUTION: xPhys = {viol:f}"
-                )
+            if cfg.filter == 2:
+                # the port's own line: the iterations of this step's PDE
+                # solves (dfdx, each dgdx, the design)
+                print(f"# PDE filter iterations: {pde_iters}")
+                if viol > 1e-4:
+                    # bound-violation warning (Filter.cc:82-97)
+                    print(
+                        "BOUND VIOLATION IN PDEFILTER - INCREASE RMIN OR "
+                        f"MESH RESOLUTION: xPhys = {viol:f}"
+                    )
             print(
                 f"State solver:  iter: {iters}, "
                 f"rerr.: {relres:e}, time: {t2 - t1:f}"

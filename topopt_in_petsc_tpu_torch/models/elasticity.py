@@ -104,6 +104,36 @@ def solve_route(cfg) -> Tuple[str, Optional[str]]:
     return impl, None
 
 
+# the resident solver's `mg_dtype` of each resolved -mg_dtype mode
+# (`TopOptConfig.resolve_mg_mode`)
+RESIDENT_MG_DTYPE = {"same": None, "bfloat16": torch.bfloat16,
+                     "mixed": "mixed"}
+
+
+def nodal_precond_dtype(mode: str, route: str, warn: bool = True):
+    """The nodal V-cycle's dtype (`GeometricMultigrid`'s precond_dtype) of
+    the resolved -mg_dtype `mode`: bf16 for "bfloat16", else the field
+    dtype (None).  "mixed" has no nodal form: with `warn` it prints the
+    JAX package's warning and runs the field dtype."""
+    if mode == "mixed" and warn:
+        print(
+            "warning: -mg_dtype mixed needs the blocked solver "
+            f"(operator_impl={route}); running a pure-f32 "
+            "V-cycle instead — the memory lever is OFF on this path",
+            file=sys.stderr,
+        )
+    return torch.bfloat16 if mode == "bfloat16" else None
+
+
+def nodal_krylov(cfg):
+    """(solve, its own arguments) of the nodal state solve: FGMRES(restart)
+    under -ksp_type fgmres, else flexible PCG (whatever -ksp_type, as the
+    JAX package's nodal solve)."""
+    if cfg.ksp_type == "fgmres":
+        return fgmres, dict(restart=cfg.ksp_gmres_restart)
+    return pcg, dict(flexible=True)
+
+
 def build_cantilever_bc(grid: Grid, dtype=np.float64):
     """Dirichlet mask N and load RHS for the reference cantilever problem
     (LinearElasticity.cc:143-171), as nodal (nx, ny, nz, 3) numpy arrays:
@@ -168,21 +198,13 @@ class LinearElasticity:
         self.solver = self.mg = None
         if self.route == "blocked":
             self.solver = BlockedElasticityMG(
-                grids, KEs, **mg_args,
-                mg_dtype={"same": None, "bfloat16": torch.bfloat16,
-                          "mixed": "mixed"}[mode],
+                grids, KEs, **mg_args, mg_dtype=RESIDENT_MG_DTYPE[mode],
                 fine_post_smooth=cfg.mg_fine_post,
             )
             # the resident load vector, f32 like every outer vector
             self._b = self.solver.op32.cantilever_rhs(dtype=torch.float32)
             return
-        if mode == "mixed":
-            print(
-                "warning: -mg_dtype mixed needs the blocked solver "
-                f"(operator_impl={self.route}); running a pure-f32 "
-                "V-cycle instead — the memory lever is OFF on this path",
-                file=sys.stderr,
-            )
+        precond_dtype = nodal_precond_dtype(mode, self.route)
         # nodal path: per-level masks by node subsampling (coarse nodes
         # coincide with fine nodes at even indices)
         N, RHS = build_cantilever_bc(self.grid)
@@ -191,8 +213,7 @@ class LinearElasticity:
         self.mg = GeometricMultigrid(
             grids, KEs, masks, dof=3, dtype=self.dtype,
             coarse_op=cfg.coarse_op, plain=self.route == "xla",
-            precond_dtype=torch.bfloat16 if mode == "bfloat16" else None,
-            **mg_args,
+            precond_dtype=precond_dtype, **mg_args,
         )
         if self.route == "xla":
             self._KEt = torch.as_tensor(self.KE, dtype=self.dtype,
@@ -318,9 +339,7 @@ class LinearElasticity:
         cfg = self.cfg
         levels = self.mg.setup(E)
         x0 = torch.zeros_like(self.RHS) if u0 is None else u0.contiguous()
-        solve, extra = (
-            (fgmres, dict(restart=cfg.ksp_gmres_restart)) if self._fgmres
-            else (pcg, dict(flexible=True)))
+        solve, extra = nodal_krylov(cfg)
         return solve(
             self._nodal_A(levels), self.RHS, x0,
             self.mg.preconditioner(levels),

@@ -36,6 +36,20 @@ import torch
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
 
+# (bytes per s, f32 FLOP per s) of each card these peaks are known for,
+# by its `torch.cuda.get_device_name`
+CARDS = {"NVIDIA H100 80GB HBM3": (H100_BYTES_PER_S, H100_F32_FLOP_PER_S)}
+
+
+def card_peaks(card: str) -> tuple[float, float]:
+    """(bytes per s, f32 FLOP per s) of the card named `card`; raises on a
+    card whose peaks are not in `CARDS`."""
+    try:
+        return CARDS[card]
+    except KeyError:
+        raise ValueError(f"no peaks known for the card {card!r}; known: "
+                         f"{', '.join(CARDS)}") from None
+
 
 def _counts(nn):
     nx, ny, nz = nn

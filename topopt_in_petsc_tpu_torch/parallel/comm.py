@@ -5,7 +5,9 @@ engine (`parallel/spmd.py`), over `torch.distributed` with gloo.
 - `exchange`: one plane (or slab) exchange along one axis.  A rank sends
   one tensor to its lower and one to its higher neighbour and receives the
   neighbours' counterparts; at the domain's edge it receives nothing
-  (None), where `ppermute` gives zeros.  What is sent is a copy taken
+  (None), where `ppermute` gives zeros.  A plane travels in its tensor's
+  dtype: a bf16 V-cycle level's planes are sent as bf16 and added in
+  bf16, as the JAX engine's `ppermute` of the level's array.  What is sent is a copy taken
   before the call returns, so a caller may update the planes in place
   afterwards: both copies of a shared plane then add the same pre-update
   values.

@@ -28,6 +28,11 @@ The iteration is a fixed sequence of stages over static buffers:
   PDE solve, with the bound violation kept in `FusedStep.pde_viol`), MND,
   and a `copy_` of the new state into the state buffers.
 
+Under `-filter 2` the iterations each PDE solve of the last step took are
+kept in `FusedStep.pde_iters` (int32, one per solve: dfdx, each dgdx,
+then the design), for the fused driver's one read at the iteration's
+end.
+
 On `cuda` the steady variant's stages are CUDA graphs, captured from the
 same stage functions after their first eager run and replayed from then
 on, all in one memory pool on one side stream; the first two iterations,
@@ -143,8 +148,11 @@ class FusedStep:
         self.dtype = cfg.torch_dtype
         self.eta = torch.tensor(cfg.eta, dtype=self.dtype, device=dev)
         self.projection = bool(cfg.projectionFilter)
-        # the last design filter's bound violation (-filter 2 only)
+        # the last design filter's bound violation and the iterations of
+        # the last step's PDE solves (-filter 2 only)
         self.pde_viol = torch.zeros((), dtype=self.dtype, device=dev)
+        self.pde_iters = torch.zeros((cfg.m + 2,), dtype=torch.int32,
+                                     device=dev)
         self.b = SimpleNamespace()  # buffers passed between stages
         self.graphs: Optional[list] = None
         self._capture = graphs and dev.type == "cuda"
@@ -240,13 +248,14 @@ class FusedStep:
             _assign(b.pde, pdef.advance(b.pde, SEGMENT))
             return pdef.active(b.pde)
 
-        def pde_solve(field, out):
-            """The stages of one PDE solve of the field `field()` returns,
+        def pde_solve(i, field, out):
+            """The stages of PDE solve `i` of the field `field()` returns,
             whose filtered field goes to `out`."""
             def start():
                 b.pde = _fresh(pdef.start(field()))
 
             def finish():
+                self.pde_iters[i].copy_(b.pde.k)
                 out(pdef.finish(b.pde))
 
             return [_Stage(start), _Stage(pde_seg, loop=True),
@@ -258,7 +267,7 @@ class FusedStep:
                 def keep(xt, j=j):
                     b.filtered[j] = xt
 
-                stages += pde_solve(lambda j=j: b.fields[j], keep)
+                stages += pde_solve(j, lambda j=j: b.fields[j], keep)
 
         def mma_start():
             if pdef is not None:
@@ -300,7 +309,7 @@ class FusedStep:
                     if self.projection else b.xTilde
                 )
 
-            stages += pde_solve(lambda: b.x_new, design)
+            stages += pde_solve(1 + cfg.m, lambda: b.x_new, design)
         return stages + [_Stage(post)]
 
     def _write_state(self, s: OptState) -> None:

@@ -9,9 +9,10 @@ gathered to it (parallel/podio.py): VTU at `-output_cadence_vtu`, the
 `.dat` under `-output_dat`, and restart files in the port's format
 (io/restart.py), whose arrays are global, so a run resumes on any mesh
 shape or on one device.  At the end every rank prints one `# rank r
-launches {...} comm {...}` line with its launch counts of K1-K4, its
-communication counts and seconds (`RankMesh.comm`) and, on a card, its
-peak device memory.
+launches {...} comm {...}` line with its launch counts of K1-K4 and
+K1-bf16, its communication counts and seconds (`RankMesh.comm`) and, on a
+card, its peak device memory.  Under `-profile_dir` each rank writes its
+own trace (`<profile_dir>/rank<r>/trace.json`, utils/profiling.py).
 
 `run_mesh` is the CLI's entry (driver.py): under torchrun this process is
 one rank; otherwise it spawns the mesh's ranks (parallel/multihost.py)
@@ -35,17 +36,21 @@ from topopt_in_petsc_tpu_torch.config import TopOptConfig
 from topopt_in_petsc_tpu_torch.io.mpiio_dat import MPIIODat
 from topopt_in_petsc_tpu_torch.io.restart import RestartManager
 from topopt_in_petsc_tpu_torch.io.vtu import write_state_vtu
-from topopt_in_petsc_tpu_torch.ops.blocked_hex import HEX_OPERATOR
+from topopt_in_petsc_tpu_torch.ops.blocked_hex import (
+    HEX_OPERATOR,
+    HEX_OPERATOR_BF16,
+)
 from topopt_in_petsc_tpu_torch.ops.nodal_hex import HELMHOLTZ, NODAL_HEX
 from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
 from topopt_in_petsc_tpu_torch.opt.filters import DesignFilter
 from topopt_in_petsc_tpu_torch.parallel import multihost, podio
 from topopt_in_petsc_tpu_torch.parallel.mesh import RankMesh
 from topopt_in_petsc_tpu_torch.parallel.spmd_model import SpmdStep
+from topopt_in_petsc_tpu_torch.utils.profiling import trace_to
 
 # the kernels of the mesh path, by the names of the kernel table
 MESH_KERNELS = {"K1": HEX_OPERATOR, "K2": QUADFORM, "K3": HELMHOLTZ,
-           "K4": NODAL_HEX}
+                "K4": NODAL_HEX, "K1-bf16": HEX_OPERATOR_BF16}
 
 
 def _quiet(*args, **kwargs) -> None:
@@ -215,8 +220,14 @@ class SpmdDriver:
 def run_rank(mesh: RankMesh, cfg: TopOptConfig,
              max_iters: Optional[int] = None) -> dict:
     """One rank's run: its history on rank 0 ({} elsewhere), after the
-    rank's launch-count line."""
-    history = SpmdDriver(cfg, mesh).run(max_iters)
+    rank's launch-count line; under `-profile_dir` traced to
+    `<profile_dir>/rank<r>/trace.json`."""
+    trace = contextlib.nullcontext()
+    if cfg.profile_dir:
+        trace = trace_to(os.path.join(cfg.profile_dir, f"rank{mesh.rank}"),
+                         mesh.device)
+    with trace:
+        history = SpmdDriver(cfg, mesh).run(max_iters)
     counts = {name: k.launches for name, k in MESH_KERNELS.items()}
     comm = {k: round(v, 6) for k, v in mesh.comm.items()}
     line = (f"# rank {mesh.rank} launches {json.dumps(counts)} "

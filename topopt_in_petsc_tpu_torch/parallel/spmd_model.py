@@ -16,6 +16,23 @@ single-device solvers on the rank's block through its `MeshBlock` hooks
 - `xla` (and float64 on any route): the same multigrid on the plain
   operators in the field dtype.
 
+The single-device solvers' options carry over unchanged:
+- `-mg_dtype` (resolved on the shard's own dof, as the JAX engine does)
+  and `-mg_fine_post`: on the resident route the bf16 levels run K1's
+  bf16-storage build (K1-bf16) with the f32 `op32` for the outer Krylov,
+  and their planes are exchanged and added in bf16, as the JAX engine's
+  `ppermute` of the level's array; the nodal route runs `bfloat16` and
+  warns for `mixed`, as on one device;
+- `-coarse_op galerkin_octant`, on the nodal route where `solve_route`
+  sends it: the octant levels are plain torch, K4 runs at the fine level;
+- `-ksp_type fgmres`: solvers/gmres.py with the mesh's dot, modified
+  Gram-Schmidt as the reference computes it (one reduction per
+  projection).
+
+Two routes of the JAX engine are not copied (ROADMAP queue 3): under
+`-ksp_type fgmres` it runs flexible CG, and its nodal V-cycle ignores
+`-mg_dtype`.
+
 The objective takes the local compliance from kernel K2 (the plain
 `element_quadratic_form` on `xla`) and sums it over the ranks.
 
@@ -40,7 +57,12 @@ import torch
 import torch.nn.functional as F
 
 from topopt_in_petsc_tpu_torch.grid import Grid
-from topopt_in_petsc_tpu_torch.models.elasticity import solve_route
+from topopt_in_petsc_tpu_torch.models.elasticity import (
+    RESIDENT_MG_DTYPE,
+    nodal_krylov,
+    nodal_precond_dtype,
+    solve_route,
+)
 from topopt_in_petsc_tpu_torch.models.elements import hex8_stiffness
 from topopt_in_petsc_tpu_torch.ops.conv_filter import (
     FFT_TAP_THRESHOLD,
@@ -70,7 +92,7 @@ from topopt_in_petsc_tpu_torch.parallel.spmd import (
     ghost_fill_elem,
 )
 from topopt_in_petsc_tpu_torch.solvers.blocked_mg import BlockedElasticityMG
-from topopt_in_petsc_tpu_torch.solvers.cg import accurate_sum, pcg
+from topopt_in_petsc_tpu_torch.solvers.cg import accurate_sum
 from topopt_in_petsc_tpu_torch.solvers.multigrid import GeometricMultigrid
 
 
@@ -100,11 +122,16 @@ class SpmdElasticity:
             coarse_maxit=cfg.coarse_maxit, precise_dots=cfg.precise_dots,
             block=block,
         )
+        # the V-cycle's storage by the shard's own dof, as the JAX engine
+        # resolves it
+        mode = cfg.resolve_mg_mode(local_ndof)
         self.bmg = self.mg = None
         dev = mesh.device
         rhs = self._nodal_rhs()
         if self.route == "blocked":
-            self.bmg = BlockedElasticityMG(grids, KEs, **mg_args)
+            self.bmg = BlockedElasticityMG(
+                grids, KEs, **mg_args, mg_dtype=RESIDENT_MG_DTYPE[mode],
+                fine_post_smooth=cfg.mg_fine_post)
             self._b = self.bmg.op32.to_blocked(rhs)
             return
         self.RHS = rhs
@@ -116,7 +143,10 @@ class SpmdElasticity:
                 m[0] = 0.0
         self.mg = GeometricMultigrid(
             grids, KEs, masks, dof=3, dtype=self.dtype,
-            plain=self.route == "xla", **mg_args)
+            coarse_op=cfg.coarse_op, plain=self.route == "xla",
+            precond_dtype=nodal_precond_dtype(mode, self.route,
+                                              warn=mesh.primary),
+            **mg_args)
         if self.route == "xla":
             self._KEt = torch.as_tensor(self.KE, dtype=self.dtype,
                                         device=dev)
@@ -152,14 +182,16 @@ class SpmdElasticity:
             res = self.bmg.solve(E, self._b,
                                  mask0(x0) if self.block.wall else x0,
                                  rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit,
-                                 ksp_type=cfg.ksp_type)
+                                 ksp_type=cfg.ksp_type,
+                                 gmres_restart=cfg.ksp_gmres_restart)
             return op.from_blocked(res.x, self.dtype), res.iters, res.relres
         levels = self.mg.setup(E)
-        res = pcg(
+        solve, extra = nodal_krylov(cfg)
+        res = solve(
             lambda v: self.mg.apply(0, levels[0]["coef"], v), self.RHS,
             u0.contiguous(), self.mg.preconditioner(levels),
-            rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit, flexible=True,
-            dot=self.mg.dot,
+            rtol=cfg.ksp_rtol, maxiter=cfg.ksp_maxit, dot=self.mg.dot,
+            **extra,
         )
         return res.x, res.iters, res.relres
 
