@@ -154,6 +154,26 @@ Phases, each printing its lines before the next starts:
      host's peak RSS and the tool's seconds and peak RSS.  Files are
      deleted as they are checked; a temporary directory without room for
      them fails the phase and says how much it needs.
+ 27. the mesh's output and restart path at 257^3 on (2,1,1), run right
+     after phase 22, whose history is its uninterrupted reference: run A,
+     launched by torchrun (`python -m torch.distributed.run --standalone
+     --nproc_per_node 2 -m topopt_in_petsc_tpu_torch ... -mesh_shape
+     2,1,1`), 1 iteration with every output on (.vtu at the default
+     cadence, -output_dat 1, the restart pair), its iteration 1 within
+     1e-6 of phase 22's (fx, gx, ch, mnd, each scaled by its largest value
+     over phase 22's run) with the same solver iterations, within 1e-3 of
+     the golden in 27 +- 1, exactly the six files written and the .dat
+     holding iterations 1 and 2; run B, the spawn launch resuming A's
+     restart pair to -maxItr 2 with no .vtu, which prints "# Continue
+     optimization" and whose iteration 2 is within 1e-6 of phase 22's with
+     the same solver iterations; run C, one card under -fused 1 (the CLI
+     entry in this process) resuming the same pair, fx within 1e-3 of
+     phase 22's iteration 2, solver iterations within 1, never stalled;
+     then tools/torch_bin2vtu.py on A's .dat, whose six arrays equal A's
+     output_00002.vtu bit for bit; K1 and K2 launched on both ranks of A
+     and B.  One line gives each run's seconds, A's beyond phase 22's,
+     each file's bytes and the tool's seconds and peak RSS; files are
+     deleted as they are checked.
 A failed mesh run prints its output's last lines (the launcher prints
 every rank's last 40 on a failure) and raises.
 A CUDA graph's replay counts the kernel launches it recorded
@@ -161,7 +181,7 @@ A CUDA graph's replay counts the kernel launches it recorded
 record.  Then one JSON line of per-kernel results, whose
 launch counts are the fused paths' (phases 10-12, K1-bf16's phase 16's
 fused resident run; every kernel also carries `mesh_launches`, its
-launches summed over the ranks of phases 21-24) and whose bounds are
+launches summed over the ranks of phases 21-24 and 27) and whose bounds are
 topopt_in_petsc_tpu_torch/ops/roofline.py's for phase 4's inputs, and,
 last, the JSON status line.  Any failure raises: the exit code is
 nonzero and no status line is printed.  Nothing falls back to the CPU or
@@ -220,7 +240,10 @@ MESH_VARIANTS = (
                     "-rmin", "0.12", "-operator_impl", "blocked",
                     "-ksp_chunk", "2"], "2,2,2", ("K1", "K2")),
 )
-RANK_LINE = re.compile(r"^# rank (\d+) launches (\{.*?\}) comm (\{.*?\})"
+# a rank's launch-count line; searched for, not matched at the line's
+# start, since another process's warning may still lack its newline when
+# a rank writes its line into the same output
+RANK_LINE = re.compile(r"# rank (\d+) launches (\{.*?\}) comm (\{.*?\})"
                        r"(?: max_memory_allocated (\d+))?$")
 # |fx / fx_r - 1| of an f64 257^3 iteration 1 on the exact element
 # matrices against one on the matrices rounded to f32: the rounding moves
@@ -1266,14 +1289,59 @@ def phase_options_257(fused_f32_times):
 
 # -- the multi-device engine (-mesh_shape) --------------------------------- #
 
-def _run_mesh(tag, args, workdir):
+# the CLI that spawns the mesh's ranks itself, and torchrun's launch of
+# `n` ranks of it on this node
+SPAWN = [sys.executable, "-m", "topopt_in_petsc_tpu_torch"]
+
+
+def _torchrun(n):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(n), "-m", "topopt_in_petsc_tpu_torch"]
+
+
+def _descendants(pid):
+    """The pids of every process below `pid` (from /proc)."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            with contextlib.suppress(OSError):
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def _stop(proc):
+    """Stop the launch `proc` and every process below it: torchrun starts
+    its ranks in sessions of their own and stops them on SIGTERM; what is
+    left after a minute, and the launch's own process group, is killed."""
+    if proc.poll() is None:
+        below = _descendants(proc.pid)
+        proc.terminate()
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            proc.wait(timeout=60)
+        for pid in below:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _run_mesh(tag, args, workdir, launcher=SPAWN):
     """The CLI run of `args` in a subprocess of its own process group,
-    which spawns the mesh's ranks, under `MESH_TIMEOUT`: (history, the
-    ranks' launch counts and peak memory, seconds).  A failed or
-    overlong run prints the last lines of its output, then raises."""
+    started by `launcher` (the CLI, which spawns the mesh's ranks, or
+    torchrun's launch of them), under `MESH_TIMEOUT`: (history, the ranks'
+    launch counts and peak memory, seconds).  Its output goes to
+    `workdir`/cli.log.  A failed or overlong run prints the last lines of
+    its output, then raises."""
     path = os.path.join(workdir, "cli.log")
-    cmd = [sys.executable, "-m", "topopt_in_petsc_tpu_torch", *args,
-           "-workdir", workdir]
+    cmd = [*launcher, *args, "-workdir", workdir]
     env = dict(os.environ, PYTHONPATH=REPO)
     t0 = time.perf_counter()
     with open(path, "w") as out:
@@ -1285,21 +1353,19 @@ def _run_mesh(tag, args, workdir):
         except subprocess.TimeoutExpired:
             rc = f"timeout after {MESH_TIMEOUT} s"
         finally:
-            with contextlib.suppress(ProcessLookupError):
-                os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+            _stop(proc)
     seconds = time.perf_counter() - t0
     with open(path) as f:
         lines = f.read().splitlines()
     if rc != 0:
-        log(f"[{tag}] mesh run {' '.join(args)}: exit {rc} after "
+        log(f"[{tag}] mesh run {' '.join(cmd)}: exit {rc} after "
             f"{seconds:.1f} s; the last lines of its output:")
         for line in lines[-400:]:
             log(f"[{tag}] | {line}")
         raise RuntimeError(f"{tag}: the mesh run failed ({rc})")
     ranks, comm = {}, {}
     for line in lines:
-        m = RANK_LINE.match(line)
+        m = RANK_LINE.search(line)
         if m:
             ranks[int(m.group(1))] = (json.loads(m.group(2)),
                                       int(m.group(4) or 0))
@@ -1382,7 +1448,8 @@ def phase_mesh_variants():
 
 
 def phase_mesh_257(split_times, total):
-    """Phase 22: 257^3 on two ranks of the card."""
+    """Phase 22: 257^3 on two ranks of the card; returns its history and
+    seconds, phase 27's uninterrupted reference."""
     tag = "22 257^3 mesh 2,1,1"
     with tempfile.TemporaryDirectory() as tmp:
         h, ranks, seconds = _run_mesh(
@@ -1401,7 +1468,8 @@ def phase_mesh_257(split_times, total):
             or h["stalled"].any()):
         raise AssertionError(f"{tag}: off the golden or stalled")
     _check_ranks(tag, ranks, 2, ("K1", "K2"))
-    return _add_launches(total, ranks)
+    _add_launches(total, ranks)
+    return h, seconds
 
 
 # phase 23: the options of the single-device solvers on a mesh, each with
@@ -1578,9 +1646,9 @@ TOOL_TIMEOUT = 600
 
 
 def _output_bytes(n):
-    """Bytes on disk that phase 26 needs at once for an n^3-node grid: the
-    .dat with two datasets, two .vtu (base64 of the mesh and the fields)
-    and two restart pairs (every array counted at 8 bytes)."""
+    """Bytes on disk that phase 26 (or 27) needs at once for an n^3-node
+    grid: the .dat with two datasets, two .vtu (base64 of the mesh and the
+    fields) and two restart pairs (every array counted at 8 bytes)."""
     nnode, nelem = n**3, (n - 1) ** 3
     fields = 12 * nnode + 12 * nelem
     vtu = 4 * (12 * nnode + 80 * nelem + fields) // 3
@@ -1706,6 +1774,35 @@ def _rss_bytes():
     return now * 1024, peak * 1024
 
 
+def _tool_against_vtu(tag, dat, final, workdir, rss_path):
+    """tools/torch_bin2vtu.py on dataset 1 of `dat` in `workdir`, its six
+    arrays against those of the driver's `final` .vtu: a dict of whether
+    each is equal, whether the final's are finite, the tool's seconds,
+    peak RSS and bytes, and the seconds of decoding both files.  The .dat
+    and both .vtu are deleted as they are read."""
+    tool = os.path.join(REPO, "tools", "torch_bin2vtu.py")
+    rc, out, err, tool_s, tool_rss = _run_tool(
+        [sys.executable, tool, "1", dat], workdir, rss_path)
+    log(f"[{tag}] tools/torch_bin2vtu.py 1 on the .dat: exit {rc}, "
+        f"stdout {out!r}")
+    if rc != 0 or out != "wrote output_00001.vtu\n":
+        raise AssertionError(f"{tag}: the tool failed: {err[-4000:]}")
+    os.remove(dat)
+    tool_vtu = os.path.join(workdir, "output_00001.vtu")
+    tool_bytes = os.path.getsize(tool_vtu)
+    t0 = time.perf_counter()
+    got = _vtu_arrays(tool_vtu, OUTPUT_FIELDS)
+    os.remove(tool_vtu)
+    ref = _vtu_arrays(final, OUTPUT_FIELDS)
+    os.remove(final)
+    return {"same": {n: got[n] == ref[n] for n in OUTPUT_FIELDS},
+            "finite": all(np.isfinite(np.frombuffer(v, "<f4")).all()
+                          for v in ref.values()),
+            "tool_s": tool_s, "tool_peak_rss": tool_rss,
+            "tool_vtu_bytes": tool_bytes,
+            "decode_s": time.perf_counter() - t0}
+
+
 def phase_output_restart(fused_hist):
     """Phase 26, the output and restart path at 257^3 through the CLI entry
     with phase 14's flags (-fused 1): run A, one iteration with every
@@ -1801,41 +1898,165 @@ def phase_output_restart(fused_hist):
         for name in ("Restart00.npz", "RestartSol00.npz"):
             os.remove(os.path.join(a, name))
 
-        tool = os.path.join(REPO, "tools", "torch_bin2vtu.py")
-        rc, out, err, tool_s, tool_rss = _run_tool(
-            [sys.executable, tool, "1", dat], c,
-            os.path.join(tmp, "tool_rss"))
-        log(f"[{tag}] tools/torch_bin2vtu.py 1 on the .dat: exit {rc}, "
-            f"stdout {out!r}")
-        if rc != 0 or out != "wrote output_00001.vtu\n":
-            raise AssertionError(f"{tag}: the tool failed: {err[-4000:]}")
-        os.remove(dat)
-        tool_vtu = os.path.join(c, "output_00001.vtu")
-        tool_bytes = os.path.getsize(tool_vtu)
-        t0 = time.perf_counter()
-        got = _vtu_arrays(tool_vtu, OUTPUT_FIELDS)
-        os.remove(tool_vtu)
-        ref = _vtu_arrays(os.path.join(a, "output_00002.vtu"), OUTPUT_FIELDS)
-        os.remove(os.path.join(a, "output_00002.vtu"))
-        same = {n: got[n] == ref[n] for n in OUTPUT_FIELDS}
-        finite = all(np.isfinite(np.frombuffer(v, "<f4")).all()
-                     for v in ref.values())
-        decode_s = time.perf_counter() - t0
+        tool = _tool_against_vtu(tag, dat, os.path.join(a, "output_00002.vtu"),
+                                 c, os.path.join(tmp, "tool_rss"))
+    same, finite = tool.pop("same"), tool.pop("finite")
     summary = {
         "free_bytes": free, "needed_bytes": need, "files": sizes,
-        "tool_vtu_bytes": tool_bytes, "run_a_s": wall_a,
+        "tool_vtu_bytes": tool["tool_vtu_bytes"], "run_a_s": wall_a,
         "run_a_iteration_s": ha["time"].tolist(), "write_s_a": sec_a,
-        "run_b_s": wall_b, "write_s_b": sec_b, "tool_s": tool_s,
-        "tool_peak_rss": tool_rss, "rss_before_a": rss_before[0],
+        "run_b_s": wall_b, "write_s_b": sec_b, "tool_s": tool["tool_s"],
+        "tool_peak_rss": tool["tool_peak_rss"], "rss_before_a": rss_before[0],
         "peak_rss_before_a": rss_before[1], "peak_rss_after_a": rss_after[1],
-        "resume_max_rel": rel, "decode_s": decode_s,
+        "resume_max_rel": rel, "decode_s": tool["decode_s"],
     }
     log(f"[{tag}] arrays of the tool's .vtu equal the driver's "
         f"output_00002.vtu: {same}, finite {finite}; {json.dumps(summary)}")
-    del got, ref
     if not all(same.values()) or not finite:
         raise AssertionError(f"{tag}: the tool's arrays differ from the "
                              "driver's final .vtu")
+
+
+# -- the mesh's output and restart path at 257^3 (phase 27) ---------------- #
+
+def _mesh_rel(h, i, ref, j):
+    """max over fx, gx, ch and mnd of |h[k][i] - ref[k][j]| / max|ref[k]|
+    (gx[0] is about 0 at iteration 1, so each key is scaled by its largest
+    value over the reference run, as phase 26 does)."""
+    return {k: float(abs(h[k][i] - ref[k][j]) / np.max(np.abs(ref[k])))
+            for k in ("fx", "gx", "ch", "mnd")}
+
+
+def phase_mesh_output_restart(ref, ref_seconds, total):
+    """Phase 27, the mesh's output and restart path at 257^3 on (2,1,1),
+    against phase 22's uninterrupted run `ref` (which took `ref_seconds`):
+    run A, launched by torchrun, 1 iteration with every output on; run B,
+    the spawn launch, resumes A's restart pair for iteration 2; run C, one
+    card under -fused 1 (the CLI entry in this process), resumes it too;
+    then tools/torch_bin2vtu.py on A's .dat, whose arrays must equal A's
+    final .vtu.  Adds A's and B's launches to `total`."""
+    import io
+    import shutil
+
+    from topopt_in_petsc_tpu_torch.io.mpiio_dat import read_dat
+
+    tag = "27 mesh output 257^3"
+    mesh = [*_size_args(257), "-mesh_shape", "2,1,1"]
+    need = _output_bytes(257)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"[{tag}] {free} B free in {tmp}; the phase needs {need} B")
+        if free < need:
+            raise RuntimeError(f"{tag}: {free} B free in {tmp}, the phase "
+                               f"needs {need} B")
+        a, b, c, t = (os.path.join(tmp, d) for d in ("A", "B", "C", "tool"))
+        for d in (a, b, c, t):
+            os.makedirs(d)
+        ha, ranks_a, wall_a = _run_mesh(
+            f"{tag} A", [*mesh, "-maxItr", "1", "-output_dat", "1"], a,
+            launcher=_torchrun(2))
+        # cli.log is this script's record of the launch
+        sizes = {n: os.path.getsize(os.path.join(a, n))
+                 for n in sorted(os.listdir(a)) if n != "cli.log"}
+        want = {"output_00001.vtu", "output_00002.vtu", "output_00000.dat",
+                "Restart00.npz", "RestartSol00.npz", "history.npz"}
+        dat = os.path.join(a, "output_00000.dat")
+        dat_itrs = [st["itr"] for st in read_dat(dat)["steps"]]
+        rel_a = _mesh_rel(ha, 0, ref, 0)
+        d1 = abs(ha["fx"][0] - GOLDEN_257_FX1) / GOLDEN_257_FX1
+        beyond = wall_a - (ref_seconds - float(ref["time"][1]))
+        log(f"[{tag}] run A (torchrun, -maxItr 1, every output): fx "
+            f"{ha['fx'].tolist()}, against phase 22's iteration 1 "
+            f"{ {k: f'{v:.2e}' for k, v in rel_a.items()} } (bar 1e-6), "
+            f"it.1 rel diff to golden {d1:.3e}, solver iterations "
+            f"{ha['iters'].tolist()} (phase 22: {ref['iters'].tolist()}), "
+            f"s/iteration {ha['time'].tolist()} (phase 22: "
+            f"{ref['time'].tolist()}), the run took {wall_a:.1f} s, "
+            f"{beyond:.1f} s beyond phase 22's run less its second "
+            f"iteration ({ref_seconds:.1f} s in all); files {sizes}; .dat "
+            f"datasets of iterations {dat_itrs}; by rank: launches and "
+            f"max_memory_allocated {_by_rank(ranks_a)}")
+        if (set(sizes) != want or dat_itrs != [1, 2]
+                or len(ha["fx"]) != 1 or max(rel_a.values()) > 1e-6
+                or int(ha["iters"][0]) != int(ref["iters"][0])
+                or d1 > 1e-3
+                or abs(int(ha["iters"][0]) - GOLDEN_257_ITERS1) > 1
+                or ha["stalled"].any()):
+            raise AssertionError(f"{tag}: run A wrote {sorted(sizes)}, "
+                                 f".dat iterations {dat_itrs}, or is off "
+                                 "phase 22's iteration 1 or the golden")
+        _check_ranks(f"{tag} A", ranks_a, 2, ("K1", "K2"))
+        _add_launches(total, ranks_a)
+        os.remove(os.path.join(a, "output_00001.vtu"))
+
+        resume = ["-restartFileVec", os.path.join(a, "Restart00.npz"),
+                  "-restartFileVecSol", os.path.join(a, "RestartSol00.npz")]
+        continued = ("# Continue optimization from file: "
+                     f"{os.path.join(a, 'Restart00.npz')}")
+        hb, ranks_b, wall_b = _run_mesh(
+            f"{tag} B", [*mesh, "-maxItr", "2", "-output_cadence_vtu", "0",
+                         *resume], b)
+        with open(os.path.join(b, "cli.log")) as f:
+            resumed_b = any(continued in line for line in f)
+        rel_b = _mesh_rel(hb, 0, ref, 1)
+        log(f"[{tag}] run B (spawn, resume to -maxItr 2): '# Continue "
+            f"optimization' printed {resumed_b}, fx {hb['fx'].tolist()}, "
+            f"against phase 22's iteration 2 "
+            f"{ {k: f'{v:.2e}' for k, v in rel_b.items()} } (bar 1e-6), "
+            f"solver iterations {hb['iters'].tolist()} (phase 22's "
+            f"iteration 2: {int(ref['iters'][1])}), s/iteration "
+            f"{hb['time'].tolist()}, the run took {wall_b:.1f} s; by rank: "
+            f"launches and max_memory_allocated {_by_rank(ranks_b)}")
+        if (not resumed_b or len(hb["fx"]) != 1
+                or max(rel_b.values()) > 1e-6
+                or int(hb["iters"][0]) != int(ref["iters"][1])
+                or hb["stalled"].any()):
+            raise AssertionError(f"{tag}: run B did not continue phase "
+                                 "22's run")
+        _check_ranks(f"{tag} B", ranks_b, 2, ("K1", "K2"))
+        _add_launches(total, ranks_b)
+        shutil.rmtree(b)
+
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                t0 = time.perf_counter()
+                hc = _run_cli([*_size_args(257), "-fused", "1", "-maxItr",
+                               "2", "-output_cadence_vtu", "0", *resume], c)
+                wall_c = time.perf_counter() - t0
+        finally:
+            sys.stdout.write(buf.getvalue())
+        resumed_c = continued in buf.getvalue().splitlines()
+        dc = abs(hc["fx"][0] / ref["fx"][1] - 1)
+        log(f"[{tag}] run C (one card, -fused 1, resume to -maxItr 2): "
+            f"'# Continue optimization' printed {resumed_c}, fx "
+            f"{hc['fx'].tolist()}, rel diff to phase 22's iteration 2 "
+            f"{dc:.3e} (bar 1e-3), solver iterations {hc['iters'].tolist()} "
+            f"(within 1 of {int(ref['iters'][1])}), stalled "
+            f"{hc['stalled'].tolist()}, s/iteration {hc['time'].tolist()}, "
+            f"the run took {wall_c:.1f} s")
+        if (not resumed_c or len(hc["fx"]) != 1 or dc > 1e-3
+                or abs(int(hc["iters"][0]) - int(ref["iters"][1])) > 1
+                or hc["stalled"].any()):
+            raise AssertionError(f"{tag}: run C did not continue phase "
+                                 "22's run on one card")
+        shutil.rmtree(c)
+        for name in ("Restart00.npz", "RestartSol00.npz"):
+            os.remove(os.path.join(a, name))
+
+        tool = _tool_against_vtu(tag, dat, os.path.join(a, "output_00002.vtu"),
+                                 t, os.path.join(tmp, "tool_rss"))
+    same, finite = tool.pop("same"), tool.pop("finite")
+    summary = {"free_bytes": free, "needed_bytes": need, "files_a": sizes,
+               "run_a_s": wall_a, "run_a_beyond_phase_22_s": beyond,
+               "run_b_s": wall_b, "run_c_s": wall_c, **tool,
+               "rel_a": rel_a, "rel_b": rel_b, "rel_c_fx": dc}
+    log(f"[{tag}] arrays of the tool's .vtu equal A's output_00002.vtu: "
+        f"{same}, finite {finite}; {json.dumps(summary)}")
+    if not all(same.values()) or not finite:
+        raise AssertionError(f"{tag}: the tool's arrays differ from A's "
+                             "final .vtu")
 
 
 def main() -> int:
@@ -1911,8 +2132,11 @@ def main() -> int:
     done(20)
     mesh_launches = phase_mesh_variants()
     done(21)
-    phase_mesh_257(split_times["default"], mesh_launches)
+    mesh_hist, mesh_seconds = phase_mesh_257(split_times["default"],
+                                             mesh_launches)
     done(22)
+    phase_mesh_output_restart(mesh_hist, mesh_seconds, mesh_launches)
+    done(27)
     phase_mesh_options(mesh_launches)
     done(23)
     phase_mesh_options_257(split_times["default"], mesh_launches)

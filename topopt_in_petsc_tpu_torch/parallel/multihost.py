@@ -6,7 +6,13 @@ Two ways in:
 
 - under `torchrun` (``WORLD_SIZE`` set), this process is one rank of the
   launch, which must have as many ranks as the mesh has positions; the
-  process group comes from torchrun's environment;
+  process group comes from torchrun's environment (`python -m
+  torch.distributed.run --standalone --nproc_per_node N -m
+  topopt_in_petsc_tpu_torch ... -mesh_shape a,b,c`).  A launch whose ranks
+  all run on this node (``LOCAL_WORLD_SIZE`` equal to ``WORLD_SIZE``)
+  reaches its store and its peers over the loopback interface, so it does
+  not depend on the host's name resolving; a launch over several nodes
+  keeps what its environment says;
 - otherwise `spawn` starts one fresh process per mesh position on this
   node (start method ``spawn``: the CLI may have initialised CUDA, which a
   forked process cannot use), with a `FileStore` rendezvous in a temporary
@@ -75,6 +81,22 @@ def start_rank(mesh: RankMesh) -> None:
         print(describe(mesh), flush=True)
 
 
+def _loopback() -> None:
+    """The ranks of one node talk over its loopback interface (a gloo
+    device on ``lo`` unless the environment names another)."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+
+
+def local_launch_env() -> None:
+    """torchrun's environment for a launch on this node alone: the store
+    at ``localhost`` (torchrun gives the host's name, which need not
+    resolve) and gloo on the loopback interface.  A launch over several
+    nodes is left as it is."""
+    if os.environ.get("LOCAL_WORLD_SIZE") == os.environ["WORLD_SIZE"]:
+        os.environ["MASTER_ADDR"] = "localhost"
+        _loopback()
+
+
 def join_torchrun(mesh_shape, device: str) -> RankMesh:
     """This process as one rank of a torchrun launch."""
     world = int(os.environ["WORLD_SIZE"])
@@ -82,6 +104,7 @@ def join_torchrun(mesh_shape, device: str) -> RankMesh:
     if world != n:
         raise ValueError(f"-mesh_shape {mesh_shape} has {n} positions but "
                          f"the launch has WORLD_SIZE={world}")
+    local_launch_env()
     mesh = make_rank_mesh(mesh_shape, int(os.environ["RANK"]), device)
     dist.init_process_group(BACKEND, rank=mesh.rank, world_size=world,
                             timeout=COLLECTIVE_TIMEOUT)
@@ -125,8 +148,7 @@ def _rank_main(rank: int, shape, device: str, tmp: str, fn: Callable,
     else:
         sys.stdout = sys.stderr = log
     os.environ["LOCAL_RANK"] = str(rank)
-    # the ranks of one node talk over its loopback interface
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    _loopback()
     mesh = make_rank_mesh(shape, rank, device)
     world = mesh.world
     store = dist.FileStore(os.path.join(tmp, "store"), world)
