@@ -214,12 +214,18 @@ def test_summary_parses_every_iteration(port_campaign):
 
 
 def test_script_exits_with_the_gates_code(tmp_path):
-    """Against the default golden (the 257^3 campaign's) a 17x9x9 run
-    fails the gate: the script exits 1, as compare_history.py does."""
+    """Against the default reference (the JAX package's 257^3 campaign on
+    the CPU) a 17x9x9 run fails the gate: the script exits 1, as
+    compare_history.py does; the TPU golden's gap is printed on a line of
+    its own."""
     done = _script(tmp_path, "-device", "cpu", *SIZE, "-maxItr", "1")
     assert done.returncode == 1, done.stdout[-2000:] + done.stderr[-2000:]
     gate = (tmp_path / "golden_gate.txt").read_text().splitlines()
+    assert "docs/jax_cpu_history_257x257x257_campaign.npz: 3 iters" in gate[0]
     assert gate[-1] == "FAIL (fx rel diff > 0.001)"
+    assert re.search(r"^TPU golden \(not gated; golden_history_257x257x257"
+                     r"\.npz\): fx max rel diff \S+ at iter 1 ",
+                     done.stdout, re.M), done.stdout[-2000:]
     assert (tmp_path / "summary.txt").read_text().startswith("iterations: 1")
 
 
