@@ -60,7 +60,10 @@ Phases, each printing its lines before the next starts:
      (phases 6 and 9); first of the default path, then (after its
      profile) of the nodal and the -filter 2 paths;
  15. a torch.profiler window (utils/profiling.py `trace_to`, which
-     `-profile_dir` runs) over one steady iteration of the split and
+     `-profile_dir` runs; `_window` opens and closes it with a ~20 ms
+     spin kernel, 10,000 one-cycle ones and a synchronization, and leaves
+     their records out) over one
+     steady iteration of the split and
      of the fused driver at 65x33x33 and at 257^3, and of the fused nodal
      and -filter 2 paths at 257^3: host launch calls, kernels on the
      device, device-to-host copies, host synchronizations, and the
@@ -92,9 +95,10 @@ Phases, each printing its lines before the next starts:
      -dtype float64 (split, fused), -operator_impl xla and -coarse_op
      galerkin_octant, with the launch counts of their kernels (none on
      the float64 and xla paths, which run the plain operators as the JAX
-     package's XLA code does); a profiled steady fused iteration of the
-     nodal FGMRES and the galerkin paths with K4's runs per level; graph =
-     eager for fused FGMRES (also with a restart every 4 iterations) and
+     package's XLA code does); a profiled steady fused iteration
+     (iteration 5: CUDA graph replays and eager stages) of the nodal FGMRES
+     and the galerkin paths, as phase 15's, with K4's runs per level; graph
+     = eager for fused FGMRES (also with a restart every 4 iterations) and
      fused float64;
  20. those options at 257^3: one split iteration each of FGMRES and
      galerkin_octant held to the golden iteration-1 compliance, of
@@ -225,6 +229,19 @@ Phases, each printing its lines before the next starts:
      absolute 1e-4 at every iteration, ch 1e-3 and solver iterations
      within 1 over iterations 1-20, ch 0.06 and solver iterations within 5
      after them (CAMPAIGN_C_LATE).
+ 29. right after phase 19, two CLI routes at 65x33x33 through the CLI
+     entry, OPTION_ITERS iterations each, split and -fused 1: the material
+     and domain flags off their defaults (`MATERIAL`), and -restart 1
+     -onlyLoadDesign 1 from the restart that `write_seeded_restart` writes
+     with the port's writer (a design made from DESIGN_SEED with numpy,
+     every other member off a fresh run's); each held to the JAX
+     package's CPU history with its flags
+     (docs/jax_cpu_history_65x33x33_{material,fused_material,onlyload,
+     fused_onlyload}.npz, the onlyload ones checked first for the
+     design's digest) at fx rtol 1e-3, gx 1e-4, ch 1e-3 and solver
+     iterations within 1, never stalled, K1 and K2 launched, and the
+     onlyload runs' log saying "# Loading design from file:", never "#
+     Continue optimization".
 A failed mesh run prints its output's last lines (the launcher prints
 every rank's last 40 on a failure) and raises.
 A CUDA graph's replay counts the kernel launches it recorded
@@ -242,7 +259,9 @@ to a plain version.
 import atexit
 import contextlib
 import glob
+import hashlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -331,6 +350,7 @@ def phase_environment():
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     log(smi)  # name, power limit
+    return smi
 
 
 def phase_build():
@@ -752,11 +772,13 @@ def _kernel_objects():
 def phase_path_run(tag, args, history, names, iters_within=None,
                    max_itr=10, late=None):
     """One `max_itr`-iteration 65x33x33 run of a path through the CLI
-    entry, held to the first `max_itr` iterations of `history`, with the
-    launch counts of its kernels `names` over that run; with no `names`,
-    a path on the plain operators, where no kernel may launch."""
+    entry, held to the first `max_itr` iterations of `history`, never
+    stalled, with the launch counts of its kernels `names` over that run;
+    with no `names`, a path on the plain operators, where no kernel may
+    launch."""
     kernels = _kernel_objects()
-    ref = {k: v[:max_itr] for k, v in _load_history(history).items()}
+    ref = {k: v[:max_itr] for k, v in _load_history(history).items()
+           if v.ndim}
     with tempfile.TemporaryDirectory() as tmp:
         for k in kernels.values():
             k.launches = 0
@@ -771,6 +793,8 @@ def phase_path_run(tag, args, history, names, iters_within=None,
         f"{time.perf_counter() - t0:.1f} s; the f32 history's solver "
         f"iterations {ref['iters'].tolist()}")
     _check_history(tag, h, ref, launches, iters_within, late)
+    if np.asarray(h["stalled"]).any():
+        raise AssertionError(f"{tag}: a state solve stalled: {h}")
     return launches
 
 
@@ -960,6 +984,67 @@ def _by_name(kernels, top):
     return {k: [r, round(us / 1e3, 3)] for k, (r, us) in ranked}
 
 
+# A torch.profiler window on the card loses device records at its edges,
+# counted in records, not time: the first 1 to 3,838 records after it
+# opens (a 20 ms or 100 ms kernel, or 100 ms of host sleep, before the
+# profiled call does not shield it) and at times its last ones before
+# it closes, up to 1,582 (tools/torch_profile_window.py; PERF.md section
+# 6).  So `_window` opens and closes with the same pad: a ~20 ms spin
+# kernel (PAD_CYCLES, at 2 GHz), PAD_BURST one-cycle spin kernels and a
+# synchronization; the pads' records are left out.
+PAD_CYCLES = 40_000_000
+PAD_BURST = 10_000
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's device function
+WINDOW_SPAN = "chip_smoke window"
+
+
+def _pad():
+    torch.cuda._sleep(PAD_CYCLES)
+    for _ in range(PAD_BURST):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _window(run_once):
+    """One torch.profiler window over `run_once()`, between two pads
+    (`_pad`): the trace's named events without the pads' (host
+    events only inside the call's span, device records without the pad
+    kernels), the growth of the wrappers' launch counts over the call
+    (graph replays included), its wall seconds and the host clock after
+    the closing pad, and the pads' device records."""
+    from topopt_in_petsc_tpu_torch.utils.profiling import trace_to
+
+    kernels = _kernel_objects()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace_to(tmp, torch.device("cuda", 0)):
+            _pad()
+            before = {n: k.launches for n, k in kernels.items()}
+            with torch.profiler.record_function(WINDOW_SPAN):
+                t0 = time.perf_counter()
+                run_once()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _pad()
+            t1 = time.perf_counter()
+        ev = [e for e in _trace_events(tmp) if "name" in e]
+    counted = {n: k.launches - before[n] for n, k in kernels.items()}
+    spans = [e for e in ev if e["name"] == WINDOW_SPAN
+             and e.get("cat") != "gpu_user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"{len(spans)} spans {WINDOW_SPAN!r} traced")
+    lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    pads = [e for e in ev if PAD_KERNEL in e["name"]]
+    ev = [e for e in ev if PAD_KERNEL not in e["name"] and (
+        e.get("cat") in _DEVICE_CATS or lo <= e.get("ts", lo) <= hi)]
+    return ev, counted, wall, t1, pads
+
+
+def _kernel_runs(on_gpu):
+    """The device's runs of each of K1-K4 among its kernels `on_gpu`."""
+    return {n: sum(any(s in e["name"] for s in names) for e in on_gpu)
+            for n, names in _DEVICE_NAMES.items()}
+
+
 def _profile(run_once, levels=None, top=0):
     """Counts of one profiled call: host launch calls (graph launches
     included), kernels and device-to-host copies on the device, host
@@ -969,19 +1054,7 @@ def _profile(run_once, levels=None, top=0):
     replays included); with `levels` (kernel name -> grid sizes), those
     kernels' runs and device time per level; with `top`, the runs and
     device ms of the `top` kernels that took the most device time."""
-    from topopt_in_petsc_tpu_torch.utils.profiling import trace_to
-
-    kernels = _kernel_objects()
-    torch.cuda.synchronize()
-    before = {n: k.launches for n, k in kernels.items()}
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace_to(tmp, torch.device("cuda", 0)):
-            t0 = time.perf_counter()
-            run_once()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            t1 = time.perf_counter()
-        ev = [e for e in _trace_events(tmp) if "name" in e]
+    ev, counted, wall, t1, _ = _window(run_once)
     dev = [e for e in ev if e.get("cat") in _DEVICE_CATS]
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in dev)
     busy, end = 0.0, -1.0
@@ -991,9 +1064,7 @@ def _profile(run_once, levels=None, top=0):
             end = b
     busy *= 1e-6
     on_gpu = _device_kernels(dev)
-    counted = {n: k.launches - before[n] for n, k in kernels.items()}
-    on_device = {n: sum(any(s in e["name"] for s in names) for e in on_gpu)
-                 for n, names in _DEVICE_NAMES.items()}
+    on_device = _kernel_runs(on_gpu)
     if counted != on_device or not any(counted.values()):
         raise AssertionError(f"launch counts {counted} differ from the "
                              f"kernels the device ran {on_device}")
@@ -1225,6 +1296,99 @@ def phase_options_runs():
                       ksp_gmres_restart=4)
     phase_graph_eager("19 float64 graph=eager", dtype="float64")
     return out["fgmres fused"]
+
+
+# -- the material and domain flags, and -onlyLoadDesign ------------------- #
+
+# the material and domain flags moved together off their defaults; the
+# element is a brick with three unequal sides
+MATERIAL = ["-penal", "3.5", "-Emin", "1e-6", "-Emax", "2", "-nu", "0.25",
+            "-xcmax", "3", "-zcmin", "0.25", "-zcmax", "1.5"]
+DESIGN_SEED = 16
+
+
+def seeded_design(nn, volfrac=0.12, seed=DESIGN_SEED, amplitude=12.5):
+    """The design that -onlyLoadDesign loads, made from `seed` with numpy
+    for a grid of `nn` nodes: uniform noise u in [-0.5, 0.5) on the
+    elements, smoothed by four passes of a periodic 3-point mean along
+    each axis, then volfrac * (1 + amplitude * u) clipped to [0.05, 0.95]
+    (f64; 0.066-0.211 at 17x9x9, 0.05-0.227 at 65x33x33).  It takes
+    correctly rounded elementwise arithmetic alone, so every machine makes
+    the same bits (np.exp and reductions may differ in the last bit
+    between machines).  The default amplitude keeps the stiffness contrast
+    low; at six times it (x 0.05-0.66 at 17x9x9) each package's f32 run
+    parts from its f64 run by 2.0e-3 in ch, past the history bar
+    (tests/test_torch_routes.py::test_high_contrast_onlyload)."""
+    u = np.random.default_rng(seed).random([n - 1 for n in nn]) - 0.5
+    for _ in range(4):
+        for ax in range(3):
+            u = (np.roll(u, 1, ax) + u + np.roll(u, -1, ax)) / 3.0
+    return np.clip(volfrac * (1.0 + amplitude * u), 0.05, 0.95)
+
+
+def design_digest(x):
+    """sha256 of a design's f64 bytes: the onlyLoadDesign histories in
+    docs/ carry it."""
+    return hashlib.sha256(
+        np.ascontiguousarray(x, dtype="<f8").tobytes()).hexdigest()
+
+
+def write_seeded_restart(workdir, nn, volfrac=0.12, seed=DESIGN_SEED,
+                         amplitude=12.5):
+    """Write `seeded_design` as `workdir`/Restart00.npz with the port's
+    io/restart.py writer, in the JAX package's format, and return its
+    path.  Every member that -onlyLoadDesign must ignore is set off a
+    fresh run's: itr 3, fscale 0.25, xPhys 0.5, xo1 and xo2 the design
+    scaled by 0.9 and 1.1, L and U the design -+ 0.2."""
+    from topopt_in_petsc_tpu_torch.io.restart import RestartManager
+
+    x = seeded_design(nn, volfrac, seed, amplitude)
+    RestartManager(workdir).write(
+        3, 0.25, x, np.full_like(x, 0.5), 0.9 * x, 1.1 * x, x + 0.2,
+        x - 0.2, np.zeros((*nn, 3)))
+    return os.path.join(workdir, "Restart00.npz")
+
+
+def phase_routes():
+    """29. The material and domain flags off their defaults (`MATERIAL`)
+    and -onlyLoadDesign from `write_seeded_restart`'s file, split and
+    -fused 1 at 65x33x33, OPTION_ITERS iterations each through the CLI
+    entry, each held to the JAX package's CPU history with its flags
+    (docs/jax_cpu_history_65x33x33_{material,fused_material,onlyload,
+    fused_onlyload}.npz; the onlyload ones carry the design's digest,
+    checked first): fx rtol 1e-3, gx 1e-4, ch 1e-3, solver iterations
+    within 1, never stalled, K1 and K2 launched; the onlyload runs print
+    "# Loading design from file:" and not "# Continue optimization"."""
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = write_seeded_restart(tmp, (65, 33, 33))
+        with np.load(restart) as r:
+            digest = design_digest(r["x"])
+        onlyload = ["-restart", "1", "-restartFileVec", restart,
+                    "-onlyLoadDesign", "1"]
+        for name, args in (("material", MATERIAL),
+                           ("fused_material", [*MATERIAL, "-fused", "1"]),
+                           ("onlyload", onlyload),
+                           ("fused_onlyload", [*onlyload, "-fused", "1"])):
+            history = f"jax_cpu_history_65x33x33_{name}.npz"
+            if "onlyload" in name and str(
+                    _load_history(history)["design_sha256"]) != digest:
+                raise AssertionError(f"{history} holds another design")
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    phase_path_run(f"29 {name}", args, history,
+                                   ("K1", "K2"), iters_within=1,
+                                   max_itr=OPTION_ITERS)
+            finally:
+                sys.stdout.write(out.getvalue())
+            lines = out.getvalue().splitlines()
+            loaded = sum(ln.startswith("# Loading design from file:")
+                         for ln in lines)
+            resumed = sum(ln.startswith("# Continue optimization")
+                          for ln in lines)
+            if resumed or loaded != ("onlyload" in name):
+                raise AssertionError(f"29 {name}: {loaded} design loads "
+                                     f"and {resumed} resumes in the log")
 
 
 def _one_iteration_257(tag, args, bar=1e-3):
@@ -2721,6 +2885,8 @@ def main() -> int:
     done(26)
     phase_options_runs()
     done(19)
+    phase_routes()
+    done(29)
     phase_options_257(fused_times)
     done(20)
     mesh_launches = phase_mesh_variants()
