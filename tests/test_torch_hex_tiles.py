@@ -1,8 +1,9 @@
 """The arithmetic of the hex-operator kernels K1, K3 and K4 and of K2
-(csrc/hex_tile.cuh), emulated in torch on the CPU, against the JAX
-package's Pallas kernels in interpret mode; the symmetry their element
-products rest on; the build key over the kernels' headers; and the
-kernels' bounds (ops/roofline.py).
+(csrc/hex_tile.cuh) and of K1-bf16's column body (csrc/hex_operator.cu),
+emulated in torch on the CPU, against the JAX package's Pallas kernels in
+interpret mode; the symmetry their element products rest on; the build
+key over the kernels' headers; the kernels' device names as the smoke's
+profiles find them; and the kernels' bounds (ops/roofline.py).
 
 The emulation does what the kernels do, in their order:
   * the reflection product (the tile body's, for K1 and K4 with dof 3
@@ -13,12 +14,26 @@ The emulation does what the kernels do, in their order:
     q = sum_k V_k . Q_k V_k;
   * K1, K3 and K4: f_e = E_e * (u_e @ KE), then each node sums its
     corners in the fixed order 1, 2, 5, 6 (the previous element plane),
-    0, 3, 4, 7; K1 zeroes the x = 0 plane when asked.
+    0, 3, 4, 7; K1 zeroes the x = 0 plane when asked;
+  * K1-bf16, on bf16 inputs widened to f32: each node plane's y-z half
+    of the transform at every element column (corners m = oy | oz << 1),
+    the x butterfly of the element's two planes, the blocks' entries in
+    the pattern a brick's KE fills (the others, ~2e-8 of the largest in
+    f32, dropped), E, the inverse x butterfly; per column and node
+    plane, the carried ox = 1 forces of the element before plus this
+    element's ox = 0 half, one inverse y-z half; each node sums its 4
+    columns in the order m = 0, 1, 2, 3; rounded to bf16 once.
 
 Tolerance: rtol 2e-5, atol 1e-5 of max|ref| (the JAX package's bar for
-its Pallas kernels, tests/test_blocked.py).
+its Pallas kernels, tests/test_blocked.py).  K1-bf16: rtol 2^-7, atol
+1e-5 of max|ref|: the emulation and the JAX kernel both compute in f32
+from the same bf16 inputs and round once to bf16, their f32 sums in
+another order, so a rounding may fall the other way (one bf16 ulp, 2^-7
+relative at most).
 """
 
+import functools
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -90,11 +105,11 @@ def reflection_blocks(KE):
     return err <= 1e-6 * np.abs(KE).max(), Q
 
 
-def _wht(x):
-    """Unnormalised 8-point Walsh-Hadamard transform over dim -2."""
+def _wht(x, n=8):
+    """Unnormalised n-point Walsh-Hadamard transform over dim -2."""
     h = 1
-    while h < 8:
-        idx = [c for c in range(8) if not c & h]
+    while h < n:
+        idx = [c for c in range(n) if not c & h]
         a, b = x[..., idx, :], x[..., [c | h for c in idx], :]
         x = x.clone()
         x[..., idx, :], x[..., [c | h for c in idx], :] = a + b, a - b
@@ -158,6 +173,62 @@ def emulate_k2(u, KE):
     return torch.einsum("...ki,kij,...kj->...", V, Q, V)
 
 
+# K1-bf16's column body: D_yz by a column face's corner m = oy | oz << 1
+# (component 1 flipped by oy, 2 by oz), and Dx (component 0 flipped)
+YZ_SIGNS = torch.tensor([[1.0, -1.0 if m & 1 else 1.0,
+                          -1.0 if m >> 1 else 1.0] for m in range(4)])
+DX = torch.tensor([-1.0, 1.0, 1.0])
+BF16_RTOL = 2.0**-7
+
+
+def block_pattern():
+    """{k: the entries of Q_k (bit 3 i + j) that K1-bf16's column body
+    multiplies}, read from csrc/hex_operator.cu::block_pattern."""
+    text = (cuda_build.CSRC / "hex_operator.cu").read_text()
+    body = text[text.index("constexpr unsigned block_pattern(int k)"):]
+    body = body[:body.index("}")]
+    found = [int(v, 8) for v in re.findall(r"\b0([0-7]{3})u", body)]
+    ks = [[0, 7], [1], [2], [3], [4], [5], [6]]
+    assert len(found) == len(ks)
+    return {k: v for group, v in zip(ks, found) for k in group}
+
+
+def emulate_k1_bf16(vb, E, KE, mask_x0):
+    """K1-bf16's column body on the resident layout: vb (3, nx, ny, nz)
+    and E bf16, widened; the result rounded to bf16."""
+    u, E = vb.float(), E.float()
+    _, nx, ny, nz = u.shape
+    pattern = block_pattern()
+    keep = torch.tensor([[[(pattern[k] >> (3 * i + j)) & 1 for j in range(3)]
+                          for i in range(3)] for k in range(8)])
+    Q = torch.tensor(reflection_blocks(KE)[1], dtype=torch.float32) * keep
+    # every node plane at every column's face corners, as WHT_yz(D_yz r):
+    # (nx, ny - 1, nz - 1, 4, 3)
+    r = torch.stack([u[:, :, m & 1:(m & 1) + ny - 1, m >> 1:(m >> 1) + nz - 1]
+                     for m in range(4)], dim=-1)
+    w = _wht(r.permute(1, 2, 3, 4, 0) * YZ_SIGNS, 4)
+    # V = WHT(D u_e) by corner bits ox | m << 1: the x butterfly of node
+    # plane x and Dx times plane x + 1
+    a, b = w[:-1], w[1:] * DX
+    v = torch.stack([a + b, a - b], dim=-2).flatten(-3, -2)
+    y = torch.einsum("kij,...kj->...ki", Q, v) * E[..., None, None]
+    f0 = y[..., 0::2, :] + y[..., 1::2, :]
+    f1 = (y[..., 0::2, :] - y[..., 1::2, :]) * DX
+    # per node plane: the element before's carried ox = 1 half plus this
+    # element's ox = 0 half, then D_yz WHT_yz: each column's corner forces
+    g = torch.zeros((nx, ny - 1, nz - 1, 4, 3))
+    g[:-1] = f0
+    g[1:] = f1 + g[1:]
+    col = _wht(g, 4) * YZ_SIGNS
+    out = torch.zeros((nx, ny, nz, 3))
+    for m in range(4):
+        oy, oz = m & 1, m >> 1
+        out[:, oy:oy + ny - 1, oz:oz + nz - 1] += col[..., m, :]
+    if mask_x0:
+        out[0] = 0.0
+    return out.permute(3, 0, 1, 2).to(torch.bfloat16)
+
+
 def _data(nn, seed):
     grid = JaxGrid(nn=nn, lo=(0, 0, 0), hi=(2, 1, 1))
     KE = hex8_stiffness(*grid.h, 0.3)
@@ -193,6 +264,39 @@ def test_k1_tile_arithmetic_matches_jax(nn, mask_x0):
     KE, u, E = _data(nn, sum(nn))
     got = emulate_k1(*_k1_inputs(KE, u, E), mask_x0)
     assert _within_bar(got.numpy(), _jax_k1(nn, KE, u, E, mask_x0)).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_k1_bf16(nn):
+    """(KE, u, E, out, masked out) of the JAX package's K1 built with dtype
+    bfloat16 (interpret mode) on _data's inputs, out (3, nx, ny, nz) f32:
+    one JAX run serves both masks."""
+    KE, u, E = _data(nn, sum(nn) + 2)
+    jop = JaxOp(nn, KE, dof=3, dtype=jnp.bfloat16, interpret=True)
+    out = jop.matvec(jop.refresh(jop.to_blocked(jnp.asarray(u))),
+                     jop.prepare_coef(jnp.asarray(E)))
+    return KE, u, E, *(
+        np.moveaxis(np.asarray(jop.from_blocked(o).astype(jnp.float32)), -1,
+                    0) for o in (out, jop.mask0(out)))
+
+
+@pytest.mark.parametrize("mask_x0", [False, True])
+@pytest.mark.parametrize("nn", SHAPES)
+def test_k1_bf16_column_arithmetic_matches_jax(nn, mask_x0):
+    """K1-bf16's column body, emulated on the bf16 inputs, against the JAX
+    kernel built with dtype bfloat16."""
+    KE, u, E, ref, masked = _jax_k1_bf16(nn)
+    ref = masked if mask_x0 else ref
+    vb = torch.from_numpy(np.ascontiguousarray(np.moveaxis(u, -1, 0)))
+    got = emulate_k1_bf16(vb.to(torch.bfloat16),
+                          torch.from_numpy(E).to(torch.bfloat16),
+                          np.asarray(KE, dtype=np.float32), mask_x0)
+    got = got.float().numpy()
+    assert got.shape == ref.shape
+    bar = BF16_RTOL * np.abs(ref) + 1e-5 * np.abs(ref).max()
+    assert np.all(np.abs(got - ref) <= bar)
+    if mask_x0:
+        assert not got[:, 0].any()
 
 
 @pytest.mark.parametrize("nn", SHAPES)
@@ -326,6 +430,53 @@ def test_k1_operation_count_is_the_reflection_product():
     assert work("K2", nn)[1] == (transform + blocks + 2 * 24) * nelem
 
 
+@pytest.mark.parametrize("h", [(2 / 256, 1 / 256, 1 / 256), (1 / 512,) * 3,
+                               (0.3, 0.7, 1.1), (0.1, 0.01, 1.0)])
+@pytest.mark.parametrize("nu", [0.0, 0.25, 0.3, 0.45])
+def test_brick_blocks_fill_the_column_body_pattern(h, nu):
+    """The entries of Q_k that K1-bf16 multiplies hold every entry that a
+    brick's KE, rounded to f32, makes nonzero: every other entry is below
+    1e-6 of the largest (the kernel's host check; ~2e-8 measured).  With
+    nu > 0 the pattern is exactly the nonzero entries (nu = 0 also empties
+    Q_0's off-diagonal)."""
+    pattern = block_pattern()
+    _, Q = reflection_blocks(np.asarray(torch_hex8_stiffness(*h, nu),
+                                        dtype=np.float32))
+    big = np.abs(Q) > 1e-6 * np.abs(Q).max()
+    got = {k: sum(1 << (3 * i + j) for i in range(3) for j in range(3)
+                  if big[k, i, j]) for k in range(8)}
+    assert all(got[k] & ~pattern[k] == 0 for k in range(8))
+    if nu > 0:
+        assert got == pattern
+
+
+def test_k1_bf16_operation_count_is_the_column_body():
+    """K1-bf16's count is its column body's: per element one y-z half of
+    the transform (the other half carried from the element before), the
+    x butterfly, the blocks' nonzero entries for a brick (a multiply per
+    row they fill, an FMA per further entry), E on those rows, the
+    inverse x butterfly (less the pairs with an empty row), the carried
+    forces added and one inverse y-z half; 9 adds per node for its 4
+    columns."""
+    nn = (5, 4, 3)
+    nnode, nelem = 60, 24
+    pattern = block_pattern()
+    entries = sum(bin(v).count("1") for v in pattern.values())
+    rows = [(k, i) for k in range(8) for i in range(3)
+            if (pattern[k] >> (3 * i)) & 7]
+    assert (entries, len(rows)) == (45, 21)
+    empty = {(k, i) for k in range(8) for i in range(3)} - set(rows)
+    half = 2 * 2 * 2 * 3  # stages x pairs x (add, subtract) x 3
+    butterfly = 4 * 2 * 3  # pairs x (add, subtract) x 3
+    blocks = len(rows) + 2 * (entries - len(rows))
+    inverse = butterfly - 2 * len(empty)
+    per_element = (half + butterfly + blocks + len(rows) + inverse + 12
+                   + half)
+    assert (half, butterfly, inverse, per_element) == (24, 24, 18, 192)
+    assert work("K1-bf16", nn) == (2.0 * (6 * nnode + nelem),
+                                   per_element * nelem + 3 * 3 * nnode)
+
+
 def test_k3_operation_count_is_the_scalar_reflection_product():
     """K3's count is the dof-1 product's: per element two transforms of
     24 adds, 8 multiplies by the modes, 8 E scalings; 7 adds per node."""
@@ -334,6 +485,23 @@ def test_k3_operation_count_is_the_scalar_reflection_product():
     transform = 3 * 4 * 2  # stages x pairs x (add, subtract)
     assert work("K3", nn)[1] == (2 * transform + 8 + 8) * nelem + 7 * nnode
     assert work("K3", nn)[0] == 4.0 * (2 * nnode + nelem)
+
+
+def test_device_names_tell_the_kernels_apart():
+    """A profile counts each kernel's device runs by a substring of its
+    device function's name (chip_smoke._DEVICE_NAMES): every __global__
+    of csrc/ is matched by exactly one entry, K1-bf16's by its own."""
+    import chip_smoke
+
+    text = "".join(p.read_text() for p in sorted(cuda_build.CSRC.glob("*.cu")))
+    names = re.findall(
+        r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", text)
+    assert "hex_operator_bf16_kernel" in names
+    owners = {n: [k for k, subs in chip_smoke._DEVICE_NAMES.items()
+                  if any(s in n for s in subs)] for n in names}
+    assert owners["hex_operator_bf16_kernel"] == ["K1-bf16"]
+    assert owners["hex_operator_kernel"] == ["K1"]
+    assert all(len(k) == 1 for k in owners.values()), owners
 
 
 def test_build_key_covers_headers(tmp_path):

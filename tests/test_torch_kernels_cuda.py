@@ -181,10 +181,53 @@ def test_k1_bf16_without_reflection_symmetry(dev):
                 _plain_k1(u.float(), E.float(), KEn, True).to(torch.bfloat16))
 
 
+# K1-bf16's column tiles own 14 x 33 nodes (512 threads, from 2^17 nodes)
+# and 6 x 33 (256 threads, smaller grids): extents one node short of,
+# equal to and one past a tile in y and z for each; the mesh's smallest
+# local blocks; and grids whose shares of (y tile, node plane) pairs
+# start and end inside a tile's walk along x
+BF16_EDGES = [(6, 5, 32), (6, 6, 33), (6, 7, 34), (6, 13, 32), (6, 14, 33),
+              (6, 15, 34), (200, 13, 65), (200, 14, 66), (200, 15, 67),
+              (5, 3, 5), (9, 5, 9), (40, 15, 34), (300, 29, 34)]
+
+
+@pytest.mark.parametrize("mask_x0", [False, True])
+@pytest.mark.parametrize("nn", BF16_EDGES)
+def test_k1_bf16_column_edges(dev, nn, mask_x0):
+    """K1-bf16 at its tiles' edges and share seams, one launch each, held
+    to its plain version, and two launches bitwise equal."""
+    KE, u, E = _bf16_case(nn, dev)
+    before = HEX_OPERATOR_BF16.launches
+    got = hex_operator(u, E, KE, mask_x0)
+    assert HEX_OPERATOR_BF16.launches == before + 1
+    _close_bf16(got, _plain_k1(u.float(), E.float(), KE, mask_x0)
+                .to(torch.bfloat16))
+    assert torch.equal(got, hex_operator(u, E, KE, mask_x0))
+    assert HEX_OPERATOR_BF16.launches == before + 2
+
+
+@pytest.mark.parametrize("nn", [(6, 15, 34), (200, 15, 67), (40, 15, 34),
+                                (5, 3, 5)])
+def test_k1_bf16_column_fma_form(dev, nn):
+    """A KE that is no brick's takes the 576-FMA product through the same
+    columns, carries and exchange."""
+    KE, u, E = _bf16_case(nn, dev)
+    A = np.random.default_rng(6).normal(size=(24, 24))
+    KEn = np.ascontiguousarray(KE + 1e-2 * np.abs(KE).max() * (A + A.T),
+                               dtype=np.float32)
+    before = HEX_OPERATOR_BF16.launches
+    got = hex_operator(u, E, KEn, False)
+    assert HEX_OPERATOR_BF16.launches == before + 1
+    _close_bf16(got, _plain_k1(u.float(), E.float(), KEn, False)
+                .to(torch.bfloat16))
+    assert torch.equal(got, hex_operator(u, E, KEn, False))
+
+
 def test_k1_grid_queries_tell_levels_apart(dev):
     levels = [(n,) * 3 for n in (257, 129, 65, 33, 17)]
     for dtype in (torch.float32, torch.bfloat16):
         grids = [hex_operator_grid(nn, dtype) for nn in levels]
+        assert all(len(g) == 3 and min(g) >= 1 for g in grids)
         assert len(set(grids)) == len(levels)
 
 

@@ -12,8 +12,16 @@ counted as FLOP (an add or a multiply 1, an FMA 2):
   Walsh-Hadamard transforms of 3 components (2 x 72 adds) and the eight
   3 x 3 blocks (24 multiplies + 48 FMAs), and the E scaling (24
   multiplies); per node the sum of 8 corner contributions (21 adds).  The
-  plain 24 x 24 product would be 576 FMAs per element.  K1-bf16, K1's
-  bf16-storage build, does the same f32 operations on half the bytes.
+  plain 24 x 24 product would be 576 FMAs per element.
+* K1-bf16, K1 on bf16 storage (half the bytes), its column body: per
+  element the y-z half of the transform on the one node plane it loads
+  (24 adds; the other half is carried from the last element), the x
+  butterfly (24 adds), the 45 entries that a brick's blocks can make
+  nonzero (21 multiplies + 24 FMAs), the E scaling of the 21 rows they
+  fill (21 multiplies), the inverse x butterfly (18 adds: three pairs
+  have an empty row), the carried ox = 1 forces added (12 adds) and one
+  inverse y-z half (24 adds); per node the sum of its 4 columns (9
+  adds).
 * K2, ``u_e . (u_e @ KE)``: per element one transform (72 adds), the
   blocks (24 multiplies + 48 FMAs) and the 24-term dot (24 FMAs), in
   place of 600 FMAs.
@@ -23,8 +31,8 @@ counted as FLOP (an add or a multiply 1, an FMA 2):
   corner terms (7 adds).  The plain 8 x 8 product would be 64 FMAs per
   element.
 
-Every f32 kernel is bound by its bytes at every grid size; K1-bf16 by
-its operations (at 257^3 0.0775 ms against 0.0708 for its bytes).
+Every kernel is bound by its bytes at every grid size (K1-bf16 at 257^3:
+0.0708 ms against 0.0504 for its operations).
 """
 
 from __future__ import annotations
@@ -60,10 +68,11 @@ def work(kernel: str, nn) -> tuple[float, float]:
     """(bytes, FLOP) of one call of `kernel` ("K1".."K4", f32 storage, or
     "K1-bf16", K1 on bf16 storage) on an `nn` node grid."""
     nnode, nelem = _counts(nn)
-    if kernel in ("K1", "K4", "K1-bf16"):  # u, E read; out written
-        width = 2.0 if kernel == "K1-bf16" else 4.0
-        return (width * (6 * nnode + nelem),
-                (144 + 120 + 24) * nelem + 21 * nnode)
+    if kernel in ("K1", "K4"):  # u, E read; out written
+        return 4.0 * (6 * nnode + nelem), (144 + 120 + 24) * nelem + 21 * nnode
+    if kernel == "K1-bf16":
+        return (2.0 * (6 * nnode + nelem),
+                (24 + 24 + 69 + 21 + 18 + 12 + 24) * nelem + 9 * nnode)
     if kernel == "K2":  # u read, q written
         return 4.0 * (3 * nnode + nelem), (72 + 120 + 48) * nelem
     if kernel == "K3":  # dof 1: u, E read, out written
