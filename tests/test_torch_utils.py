@@ -1,86 +1,38 @@
-"""`utils/` of the port against the JAX package's (`utils/timers.py`,
-`utils/profiling.py`), and `-profile_dir` (the counterpart of
+"""`utils/` of the port against the JAX package's (`utils/profiling.py`),
+and `-profile_dir` (the counterpart of
 tests/test_api.py::test_profile_dir_writes_trace):
 
-- `Timer` and `timed` print the JAX package's report lines, character for
-  character, on the same clock readings;
 - `SpmvRoofline` counts the JAX package's FLOP and bytes exactly; its
   bound takes the peaks of the named card (ops/roofline.py) and raises
   for a card whose peaks are not known;
 - `-profile_dir` on `-device cpu` writes a Chrome trace of the run, one
   per rank under `-mesh_shape 2,1,1`, and the run's history is the one
-  without the trace (every number equal).
+  without the trace (every number equal); under `-fused 1` the trace
+  holds the fused step's and the driver's spans (utils/spans.py).
 """
 
 import contextlib
 import io
-import itertools
 import json
 import os
-import time
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from topopt_in_petsc_tpu.utils import profiling as jprof
-from topopt_in_petsc_tpu.utils import timers as jtimers
 from topopt_in_petsc_tpu_torch.config import TopOptConfig
 from topopt_in_petsc_tpu_torch.driver import run_topopt
 from topopt_in_petsc_tpu_torch.ops.roofline import (
     H100_BYTES_PER_S,
     H100_F32_FLOP_PER_S,
 )
-from topopt_in_petsc_tpu_torch.utils import (
-    Timer,
-    speed_of_light_spmv,
-    timed,
-    trace_to,
-)
+from topopt_in_petsc_tpu_torch.utils import speed_of_light_spmv, trace_to
 from topopt_in_petsc_tpu_torch.utils.profiling import TRACE_FILE, SpmvRoofline
 
 torch.set_num_threads(1)
 
 H100 = "NVIDIA H100 80GB HBM3"
-
-
-def _ticks(monkeypatch):
-    """A clock that reads 0, 0.0123, 0.0246, ... seconds."""
-    clock = (0.0123 * i for i in itertools.count())
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-
-
-def _timer_report(timer_cls, sync):
-    t = timer_cls()
-    for name in ("solve", "filter", "solve"):
-        with t.section(name, sync=sync):
-            pass
-    with t.section("mma"):
-        pass
-    return t.report()
-
-
-def test_timer_report_matches_jax(monkeypatch):
-    _ticks(monkeypatch)
-    ours = _timer_report(Timer, torch.ones(3))
-    _ticks(monkeypatch)
-    theirs = _timer_report(jtimers.Timer, jnp.ones(3))
-    assert ours == theirs
-    assert ours.splitlines()[2] == \
-        "solve: total 0.025 s, calls 2, avg 12.30 ms"
-
-
-def test_timed_line_matches_jax(monkeypatch):
-    lines = []
-    for mod, value in ((jtimers, jnp.ones(2)), (None, torch.ones(2))):
-        _ticks(monkeypatch)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            with (mod.timed if mod else timed)("state solve", result=value):
-                pass
-        lines.append(buf.getvalue())
-    assert lines[0] == lines[1] == "state solve: 0.0123 s\n"
 
 
 @pytest.mark.parametrize("nelem", [1, 8 * 4 * 4, 256**3])
@@ -133,14 +85,25 @@ def _same_history(a, b):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("flags", [[], ["-fused", "1"]],
+# the spans a -fused 1 run records (utils/spans.py); -restart 0 writes no
+# restart, so `driver.restart` is not among them
+FUSED_SPANS = {"fused.step", "fused.pre", "fused.pcg", "fused.head",
+               "fused.mma_start", "fused.dip", "fused.post", "fused.flag",
+               "driver.scalars", "driver.outputs"}
+
+
+@pytest.mark.parametrize("flags, spans", [([], set()),
+                                          (["-fused", "1"], FUSED_SPANS)],
                          ids=["split", "fused"])
-def test_profile_dir_writes_a_trace_and_changes_no_number(flags, tmp_path):
+def test_profile_dir_writes_a_trace_and_changes_no_number(flags, spans,
+                                                          tmp_path):
     prof = tmp_path / "prof"
     traced = _run(tmp_path / "a", *flags, "-profile_dir", str(prof))
     _same_history(traced, _run(tmp_path / "b", *flags))
     names = {e.get("name") for e in _events(prof)}
     assert "aten::conv3d" in names  # the density filter's convolution
+    assert {n for n in names if str(n).startswith(("fused.", "driver."))} \
+        == spans
 
 
 def test_profile_dir_on_a_mesh_writes_one_trace_per_rank(tmp_path):

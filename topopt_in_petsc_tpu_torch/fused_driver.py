@@ -33,6 +33,7 @@ from topopt_in_petsc_tpu_torch.opt.filters import (
     smooth_projection,
 )
 from topopt_in_petsc_tpu_torch.parallel.fused_step import make_fused_step
+from topopt_in_petsc_tpu_torch.utils.spans import span
 
 
 def _load(dst: torch.Tensor, value) -> None:
@@ -81,35 +82,42 @@ class FusedDriver:
 
     def _write_outputs(self, itr):
         """The fields of iteration `itr`: to the .dat under -output_dat 1
-        (whatever the VTU cadence), then to a .vtu."""
+        (whatever the VTU cadence), then to a .vtu; in the span
+        `driver.outputs`."""
         s = self.state
-        if self.dat is not None:
-            self.dat.write_state(itr, s.u, s.x, s.xTilde, s.xPhys)
-        if not self.cfg.output_cadence_vtu:
-            return
-        path = os.path.join(self.cfg.workdir, f"output_{itr:05d}.vtu")
-        write_state_vtu(path, self.grid, s.u, s.x, s.xTilde, s.xPhys)
+        with span("driver.outputs"):
+            if self.dat is not None:
+                self.dat.write_state(itr, s.u, s.x, s.xTilde, s.xPhys)
+            if not self.cfg.output_cadence_vtu:
+                return
+            path = os.path.join(self.cfg.workdir, f"output_{itr:05d}.vtu")
+            write_state_vtu(path, self.grid, s.u, s.x, s.xTilde, s.xPhys)
 
     def _write_restart(self):
+        """The restart files, in the span `driver.restart`."""
         if not self.restart_mgr.enabled:
             return
         s = self.state
-        self.restart_mgr.write(
-            self.itr, float(s.fscale), s.x, s.xPhys, s.xo1, s.xo2, s.U,
-            s.L, s.u,
-        )
+        with span("driver.restart"):
+            self.restart_mgr.write(
+                self.itr, float(s.fscale), s.x, s.xPhys, s.xo1, s.xo2, s.U,
+                s.L, s.u,
+            )
 
     def _scalars(self):
         """The logged scalars of the state, in one device-to-host copy:
         (fx, fscale, ch, mnd, gx[0], beta, iters, relres, PDE-filter
-        bound violation, the PDE solves' iterations under -filter 2)."""
+        bound violation, the PDE solves' iterations under -filter 2), in
+        the span `driver.scalars`."""
         s, step = self.state, self.step
         pde = list(step.pde_iters.unbind()) if self.cfg.filter == 2 else []
-        v = torch.stack([
-            t.reshape(()).to(torch.float64)
-            for t in (s.fx, s.fscale, s.ch, s.mnd, s.gx[0], s.beta,
-                      s.solver_iters, s.solver_relres, step.pde_viol, *pde)
-        ]).tolist()
+        with span("driver.scalars"):
+            v = torch.stack([
+                t.reshape(()).to(torch.float64)
+                for t in (s.fx, s.fscale, s.ch, s.mnd, s.gx[0], s.beta,
+                          s.solver_iters, s.solver_relres, step.pde_viol,
+                          *pde)
+            ]).tolist()
         *vals, iters, relres, viol = v[:9]
         return (*vals, int(iters), relres, viol, [int(k) for k in v[9:]])
 
@@ -156,11 +164,12 @@ class FusedDriver:
                 # changed=False (Filter.cc:281-284) and must still
                 # re-project
                 if beta != beta0:
-                    s.beta.fill_(beta)
-                    s.xPhys.copy_(
-                        smooth_projection(s.xTilde, s.beta, self.step.eta)
-                    )
-                    mnd = float(torch.mean(4.0 * s.xPhys * (1.0 - s.xPhys)))
+                    with span("driver.beta"):
+                        s.beta.fill_(beta)
+                        s.xPhys.copy_(smooth_projection(s.xTilde, s.beta,
+                                                        self.step.eta))
+                        mnd = float(torch.mean(4.0 * s.xPhys
+                                               * (1.0 - s.xPhys)))
 
             if cfg.filter == 2:
                 # the port's own line: the iterations of this step's PDE

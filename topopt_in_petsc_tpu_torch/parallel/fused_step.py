@@ -60,6 +60,7 @@ from topopt_in_petsc_tpu_torch.opt.filters import (
 )
 from topopt_in_petsc_tpu_torch.opt.mma import MMA
 from topopt_in_petsc_tpu_torch.solvers.cg import SEGMENT
+from topopt_in_petsc_tpu_torch.utils.spans import span
 
 
 class OptState(NamedTuple):
@@ -100,8 +101,10 @@ class _Stage(NamedTuple):
     segment and returns its 0-d flag "run another segment"; a
     `repeat_prev` stage returns a 0-d flag that, when set, sends the run
     back to the stage before it (the FGMRES close, back to the Arnoldi
-    loop)."""
+    loop).  Each run of a stage is the span `fused.<name>`
+    (utils/spans.py)."""
 
+    name: str
     fn: object
     loop: bool = False
     repeat_prev: bool = False
@@ -109,21 +112,25 @@ class _Stage(NamedTuple):
 
 class _Graph:
     """One stage captured as a CUDA graph, with the kernel launches it
-    recorded: a replay launches them, so it adds them to the counts."""
+    recorded; it runs as its stage does, `fn()` replaying the graph and
+    returning the captured flag.  A replay launches the recorded kernels,
+    so it adds them to the counts."""
 
     def __init__(self, stage: _Stage, stream, pool):
         before = [k.captured for k in KERNELS]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.flag = stage.fn()
+        self.name = stage.name
         self.loop = stage.loop
         self.repeat_prev = stage.repeat_prev
         self.launches = [k.captured - b for k, b in zip(KERNELS, before)]
 
-    def replay(self) -> None:
+    def fn(self):
         self.graph.replay()
         for k, n in zip(KERNELS, self.launches):
             k.launches += n
+        return self.flag
 
 
 class FusedStep:
@@ -239,10 +246,10 @@ class FusedStep:
             )
             b.fields = [b.dfdx, *b.dgdx]
 
-        stages = [_Stage(pre), _Stage(pcg_seg, loop=True)]
+        stages = [_Stage("pre", pre), _Stage("pcg", pcg_seg, loop=True)]
         if fgmres:
-            stages.append(_Stage(close, repeat_prev=True))
-        stages.append(_Stage(head))
+            stages.append(_Stage("close", close, repeat_prev=True))
+        stages.append(_Stage("head", head))
 
         def pde_seg():
             _assign(b.pde, pdef.advance(b.pde, SEGMENT))
@@ -258,8 +265,9 @@ class FusedStep:
                 self.pde_iters[i].copy_(b.pde.k)
                 out(pdef.finish(b.pde))
 
-            return [_Stage(start), _Stage(pde_seg, loop=True),
-                    _Stage(finish)]
+            return [_Stage("pde_start", start),
+                    _Stage("pde", pde_seg, loop=True),
+                    _Stage("pde_finish", finish)]
 
         if pdef is not None:
             b.filtered = [None] * (1 + cfg.m)
@@ -294,9 +302,10 @@ class FusedStep:
                 b.xTilde, b.xPhys = self.project(b.x_new, s.beta)
             self._write_state(s)
 
-        stages += [_Stage(mma_start), _Stage(dip_seg, loop=True)]
+        stages += [_Stage("mma_start", mma_start),
+                   _Stage("dip", dip_seg, loop=True)]
         if pdef is not None:
-            stages.append(_Stage(post_x))
+            stages.append(_Stage("post_x", post_x))
 
             def design(xt):
                 # bound-violation clip (Filter.cc:76-101); the violation
@@ -310,7 +319,7 @@ class FusedStep:
                 )
 
             stages += pde_solve(1 + cfg.m, lambda: b.x_new, design)
-        return stages + [_Stage(post)]
+        return stages + [_Stage("post", post)]
 
     def _write_state(self, s: OptState) -> None:
         """The new state into the state buffers, in the JAX step's
@@ -337,31 +346,34 @@ class FusedStep:
     def _more(self, flag: torch.Tensor) -> bool:
         """The host's one read per segment: the loop's flag, through a
         pinned buffer on the card."""
-        if flag.device.type != "cuda":
-            return bool(flag)
-        self._flag.copy_(flag, non_blocking=True)
-        self.stream.synchronize()
-        return bool(self._flag)
+        with span("fused.flag"):
+            if flag.device.type != "cuda":
+                return bool(flag)
+            self._flag.copy_(flag, non_blocking=True)
+            self.stream.synchronize()
+            return bool(self._flag)
 
     def _run(self, stages: list) -> None:
+        """Runs `_Stage`s eagerly or replays their `_Graph`s, each run in
+        its span."""
+        def run(st):
+            with span(f"fused.{st.name}"):
+                return st.fn()
+
         i = 0
         while i < len(stages):
             st = stages[i]
-            flag = st.fn()
+            flag = run(st)
             while st.loop and self._more(flag):
-                flag = st.fn()
+                flag = run(st)
             i += -1 if st.repeat_prev and self._more(flag) else 1
 
-    def _replay(self) -> None:
-        i = 0
-        while i < len(self.graphs):
-            g = self.graphs[i]
-            g.replay()
-            while g.loop and self._more(g.flag):
-                g.replay()
-            i += -1 if g.repeat_prev and self._more(g.flag) else 1
-
     def __call__(self, s: OptState, itr: int = 3) -> OptState:
+        """The iteration, in the span `fused.step`."""
+        with span("fused.step"):
+            return self._step(s, itr)
+
+    def _step(self, s: OptState, itr: int) -> OptState:
         first, fresh = itr == 1, itr <= 2
         if self.device.type != "cuda":
             self._run(self._stages(s, first, fresh))
@@ -375,7 +387,7 @@ class FusedStep:
                         "the state's tensors are not the captured "
                         "buffers: write into them with copy_"
                     )
-                self._replay()
+                self._run(self.graphs)
             else:
                 stages = self._stages(s, first, fresh)
                 # the first steady iteration runs eagerly (the warm-up:
