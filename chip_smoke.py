@@ -20,7 +20,11 @@ Phases, each printing its lines before the next starts:
      bf16-storage build, K1-bf16, rtol 2^-7: both round once to bf16);
      two launches of each of K1-K4 and K1-bf16 bitwise equal (no
      atomics); and, for element matrices without the brick's reflection
-     symmetry, the FMA products;
+     symmetry, the FMA products; then the Chebyshev step kernel
+     (chebyshev_smooth on f32 card fields, degree 4, from zero and from
+     x, dinv and lmax from the solvers' set-up) at 9x7x5 to 33^3 above,
+     resident (dof 3) and nodal (dof 1), bitwise equal to the
+     plain torch steps, with 4 launches per call and b and x kept;
   4. kernel times at 257^3 nodes against the plain versions (the kernel
      as a CUDA graph of one launch replays it, the plain version around
      its call; CUDA events, median of 15), each kernel's output first
@@ -29,7 +33,11 @@ Phases, each printing its lines before the next starts:
      513^3 and 65x33x33) and K3 at the PDE filter's levels 257^3, 129^3
      and 65^3, held to the plain version and then timed as a graph of
      back-to-back launches replays it, beside the bound and its share,
-     which must not exceed 100%;
+     which must not exceed 100%; the Chebyshev step kernel, as in phase
+     3, at every level of the 257^3 hierarchy and at the PDE filter's
+     levels (dof 1), then one recurrence step timed so beside its bytes
+     bound (8 field passes), its share not above 100% where its fields
+     do not fit in L2;
   5. the default 65x33x33 run through the CLI entry for 10 iterations,
      held against docs/jax_cpu_history_65x33x33.npz (the JAX package on
      CPU), with the launch counts of K1 and K2 over that run;
@@ -67,7 +75,8 @@ Phases, each printing its lines before the next starts:
      of the fused driver at 65x33x33 and at 257^3, and of the fused nodal
      and -filter 2 paths at 257^3: host launch calls, kernels on the
      device, device-to-host copies, host synchronizations, and the
-     device's idle share; and the runs of K1-K4 the device recorded in
+     device's idle share; and the runs of K1-K4, K1-bf16 and the
+     Chebyshev step kernel the device recorded in
      each window, which must equal the growth of their launch counts
      over it; in the fused 257^3 windows, the runs and device time per
      multigrid level of K1 (default and -filter 2), K4 (nodal) and K3
@@ -94,8 +103,9 @@ Phases, each printing its lines before the next starts:
      iterations within 1): -ksp_type fgmres (resident, nodal, fused),
      -dtype float64 (split, fused), -operator_impl xla and -coarse_op
      galerkin_octant, with the launch counts of their kernels (none on
-     the float64 and xla paths, which run the plain operators as the JAX
-     package's XLA code does); a profiled steady fused iteration
+     the float64 paths, and the Chebyshev step kernel alone on the xla
+     path, which run the plain operators as the JAX package's XLA code
+     does); a profiled steady fused iteration
      (iteration 5: CUDA graph replays and eager stages) of the nodal FGMRES
      and the galerkin paths, as phase 15's, with K4's runs per level; graph
      = eager for fused FGMRES (also with a restart every 4 iterations) and
@@ -508,6 +518,9 @@ def phase_parity(dev):
                 _plain_nodal(un, En, K)))
     torch.cuda.synchronize()
     _parity_forms(dev)
+    for nn in PARITY_SHAPES:
+        for dof in (3, 1):
+            _cheb_equal("3 parity", dof, nn, dev)
     return errs
 
 
@@ -556,6 +569,113 @@ def _parity_forms(dev):
         Kn = _bent(K, 4)
         _compare(f"{name} {nn} matrix without the symmetry",
                  wrapper(un, En, Kn), _plain_nodal(un, En, Kn))
+
+
+def _cheb_case(dof, nn, seed, dev):
+    """(A, dinv, lmax, b, x) of one smoothed level on nn nodes of the 2x1x1
+    box: the resident state solve's (BlockedElasticityMG, K1, dof 3) or
+    the PDE filter's nodal V-cycle's (GeometricMultigrid, K3, dof 1), set
+    up from a seeded element field; b and x from the seed."""
+    from topopt_in_petsc_tpu_torch.grid import Grid
+    from topopt_in_petsc_tpu_torch.models.elements import (
+        helmholtz_element_matrices,
+        hex8_stiffness,
+    )
+    from topopt_in_petsc_tpu_torch.solvers.blocked_mg import (
+        BlockedElasticityMG,
+    )
+    from topopt_in_petsc_tpu_torch.solvers.multigrid import (
+        GeometricMultigrid,
+    )
+
+    grid = Grid(nn=nn, lo=(0.0, 0.0, 0.0), hi=(2.0, 1.0, 1.0))
+    rng = np.random.default_rng(seed)
+    E = torch.as_tensor(1e-9 + rng.uniform(0.0, 1.0, size=grid.ne) ** 3,
+                        dtype=torch.float32, device=dev)
+    if dof == 3:
+        mg = BlockedElasticityMG([grid], [hex8_stiffness(*grid.h, 0.3)],
+                                 device=dev)
+        lvl = mg.setup(E)[0]
+        A, shape = mg._A(0, lvl["eb"]), (3, *nn)
+    else:  # the default rmin 0.08, R = rmin / (2 sqrt 3)
+        KF = helmholtz_element_matrices(*grid.h, 0.08 / (2 * 3**0.5))[0]
+        mg = GeometricMultigrid([grid], [KF], None, 1, device=dev)
+        lvl = mg.setup(torch.ones_like(E))[0]
+        A, shape = (lambda v: mg.apply(0, lvl["coef"], v)), (*nn, 1)
+    b, x = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    return A, lvl["dinv"], lvl["lmax"], b, x
+
+
+CHEB = dict(degree=4, lower=0.06, upper=1.1)  # the V-cycles' smoothing
+
+
+def _cheb_equal(phase, dof, nn, dev):
+    """`chebyshev_smooth` on one level's f32 card fields, from zero and
+    from x: `degree` launches of the step kernel, the bits of the plain
+    torch steps (`chebyshev_smooth_plain`), b and x left as they were.
+    Returns the level's (A, dinv, lmax, b, x)."""
+    from topopt_in_petsc_tpu_torch.ops.chebyshev import CHEBYSHEV_STEP
+    from topopt_in_petsc_tpu_torch.solvers.chebyshev import (
+        chebyshev_smooth,
+        chebyshev_smooth_plain,
+    )
+
+    case = A, dinv, lmax, b, x = _cheb_case(dof, nn, 40 + dof, dev)
+    b0, x0 = b.clone(), x.clone()
+    for x_is_zero in (True, False):
+        before = CHEBYSHEV_STEP.launches
+        got = chebyshev_smooth(A, b, x, dinv, lmax, x_is_zero=x_is_zero,
+                               **CHEB)
+        launched = CHEBYSHEV_STEP.launches - before
+        ref = chebyshev_smooth_plain(A, b, x, dinv, lmax,
+                                     x_is_zero=x_is_zero, **CHEB)
+        same = torch.equal(got, ref)
+        kept = torch.equal(b, b0) and torch.equal(x, x0)
+        log(f"[{phase}] Chebyshev step dof {dof} {nn} x_is_zero="
+            f"{x_is_zero}: {launched} launches, bitwise equal to the plain "
+            f"steps {same}, b and x kept {kept}")
+        if not (same and kept and launched == CHEB["degree"]):
+            raise AssertionError(f"Chebyshev step dof {dof} {nn}: not the "
+                                 "plain steps")
+    return case
+
+
+def _cheb_level_times(dev):
+    """The Chebyshev step kernel at every level of the 257^3 hierarchy and
+    of the PDE filter's there (dof 1): held to the plain steps
+    (`_cheb_equal`), then a recurrence step in place, as the smoother
+    runs it, timed as a graph of back-to-back launches replays it, beside
+    its bytes bound (8 field passes: r, A d, d, dinv, x read, r, d, x
+    written); a share above 100% refused where the fields it reads do
+    not fit in the card's L2."""
+    from topopt_in_petsc_tpu_torch.ops.chebyshev import chebyshev_step
+    from topopt_in_petsc_tpu_torch.ops.roofline import H100_BYTES_PER_S
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for dof, sizes in ((3, LEVELS_257), (1, PDE_LEVELS_257)):
+        for nn in sizes:
+            A, dinv, lmax, b, x = _cheb_equal("4 times", dof, nn, dev)
+            r, d = b.clone(), x.clone()
+            ad = A(d)
+            nbytes = 8 * 4.0 * b.numel()
+            n = max(1, min(200, int(5e8 // nbytes)))
+            ms = _graph_ms(lambda: chebyshev_step(
+                2, r, ad, d, dinv, x, lmax, CHEB["lower"], CHEB["upper"],
+                r_out=r, d_out=d, x_out=x), n)
+            bound = nbytes / H100_BYTES_PER_S * 1e3
+            # the five fields it reads stay in L2 between launches
+            in_l2 = 5 * 4 * b.numel() <= l2
+            log(f"[4 times] Chebyshev step dof {dof} "
+                f"{'x'.join(map(str, nn))}: {ms:.5f} ms per launch (graph "
+                f"of {n}), bound {bound:.5f} ms (bytes), "
+                f"{100 * bound / ms:.1f}% of the bound"
+                + (" (its fields fit in L2: no DRAM bound)" if in_l2 else ""))
+            if bound > ms and not in_l2:
+                raise AssertionError(f"Chebyshev step {nn}: {ms} ms beats "
+                                     f"its bound {bound} ms")
+            del A, dinv, lmax, b, x, r, d, ad
+            torch.cuda.empty_cache()
 
 
 def _median_ms(fns, reps=15):
@@ -615,7 +735,8 @@ def _level_times(dev, errs):
     """K1 and K4 at every level of the 257^3 hierarchy (K1 also at
     65x33x33), K3 at the PDE filter's levels 257^3, 129^3 and 65^3, each
     held to the plain version, then timed as a graph of back-to-back
-    launches replays it (the fused step's form), beside its bound."""
+    launches replays it (the fused step's form), beside its bound; then
+    the Chebyshev step kernel at those levels (`_cheb_level_times`)."""
     from topopt_in_petsc_tpu_torch.ops.roofline import work
 
     levels = {"K1": (*LEVELS_257, (65, 33, 33)), "K4": LEVELS_257,
@@ -636,6 +757,7 @@ def _level_times(dev, errs):
                 f"{100 * share:.1f}% of the bound")
             del kernel, plain
             torch.cuda.empty_cache()
+    _cheb_level_times(dev)
 
 
 def phase_kernel_times(dev, errs):
@@ -762,20 +884,22 @@ def _kernel_objects():
         HEX_OPERATOR,
         HEX_OPERATOR_BF16,
     )
+    from topopt_in_petsc_tpu_torch.ops.chebyshev import CHEBYSHEV_STEP
     from topopt_in_petsc_tpu_torch.ops.nodal_hex import HELMHOLTZ, NODAL_HEX
     from topopt_in_petsc_tpu_torch.ops.quadform import QUADFORM
 
     return {"K1": HEX_OPERATOR, "K2": QUADFORM, "K3": HELMHOLTZ,
-            "K4": NODAL_HEX, "K1-bf16": HEX_OPERATOR_BF16}
+            "K4": NODAL_HEX, "K1-bf16": HEX_OPERATOR_BF16,
+            "Cheb": CHEBYSHEV_STEP}
 
 
 def phase_path_run(tag, args, history, names, iters_within=None,
-                   max_itr=10, late=None):
+                   max_itr=10, late=None, only=False):
     """One `max_itr`-iteration 65x33x33 run of a path through the CLI
     entry, held to the first `max_itr` iterations of `history`, never
-    stalled, with the launch counts of its kernels `names` over that run;
-    with no `names`, a path on the plain operators, where no kernel may
-    launch."""
+    stalled, with the launch counts of its kernels `names` over that run,
+    each above 0; with no `names` or with `only`, no other kernel may
+    launch (a path on the plain operators)."""
     kernels = _kernel_objects()
     ref = {k: v[:max_itr] for k, v in _load_history(history).items()
            if v.ndim}
@@ -787,8 +911,10 @@ def phase_path_run(tag, args, history, names, iters_within=None,
                       "-output_cadence_vtu", "0"], tmp)
         torch.cuda.synchronize()
         launches = {n: kernels[n].launches for n in names}
-        if not names and any(k.launches for k in kernels.values()):
-            raise AssertionError(f"{tag}: a kernel launched on a plain path")
+        if (only or not names) and any(
+                k.launches for n, k in kernels.items() if n not in names):
+            raise AssertionError(f"{tag}: a kernel outside {names} "
+                                 "launched on a plain path")
     log(f"[{tag}] launches over the run: {launches}; the run took "
         f"{time.perf_counter() - t0:.1f} s; the f32 history's solver "
         f"iterations {ref['iters'].tolist()}")
@@ -911,6 +1037,7 @@ _DEVICE_NAMES = {
     "K3": ("helmholtz_kernel",),
     "K4": ("nodal_hex_kernel",),
     "K1-bf16": ("hex_operator_bf16_kernel",),
+    "Cheb": ("chebyshev_step_kernel",),
 }
 
 
@@ -1040,7 +1167,8 @@ def _window(run_once):
 
 
 def _kernel_runs(on_gpu):
-    """The device's runs of each of K1-K4 among its kernels `on_gpu`."""
+    """The device's runs of each kernel of `_DEVICE_NAMES` among its
+    kernels `on_gpu`."""
     return {n: sum(any(s in e["name"] for s in names) for e in on_gpu)
             for n, names in _DEVICE_NAMES.items()}
 
@@ -1049,7 +1177,8 @@ def _profile(run_once, levels=None, top=0):
     """Counts of one profiled call: host launch calls (graph launches
     included), kernels and device-to-host copies on the device, host
     synchronizations, wall and device-busy seconds, idle share, and the
-    executions of K1-K4 that the device recorded, held equal to the
+    executions of the hand-written kernels (`_DEVICE_NAMES`) that the
+    device recorded, held equal to the
     growth of the wrappers' launch counts over the same call (graph
     replays included); with `levels` (kernel name -> grid sizes), those
     kernels' runs and device time per level; with `top`, the runs and
@@ -1255,12 +1384,13 @@ def phase_options_runs():
     fused paths, float64 split and fused, the plain nodal path
     (-operator_impl xla, whose history is the default one: the JAX
     package's CPU runs `auto` as `xla`) and octant-Galerkin coarse levels.
-    The float64 and xla runs take the plain operators, so no kernel may
-    launch there.  Then one steady fused iteration of the nodal FGMRES
-    and the galerkin paths under torch.profiler, with K4's runs and
-    device time per level, and graph = eager for fused FGMRES (also
-    restarting every 4 iterations) and fused float64.  Returns the launches of the
-    fused FGMRES run."""
+    The float64 and xla runs take the plain operators: no kernel may
+    launch in the float64 runs, and in the xla run the Chebyshev step
+    kernel alone (its smoothing is f32).  Then one steady fused
+    iteration of the nodal FGMRES and the galerkin paths under
+    torch.profiler, with K4's runs and device time per level, and graph =
+    eager for fused FGMRES (also restarting every 4 iterations) and fused
+    float64.  Returns the launches of the fused FGMRES run."""
     runs = {
         "fgmres": (FGMRES, "fgmres", ("K1", "K2")),
         "fgmres nodal": ([*FGMRES, "-operator_impl", "pallas"], "fgmres",
@@ -1269,7 +1399,7 @@ def phase_options_runs():
                          ("K1", "K2")),
         "float64": (F64, "float64", ()),
         "float64 fused": ([*F64, "-fused", "1"], "fused_float64", ()),
-        "xla": (["-operator_impl", "xla"], None, ()),
+        "xla": (["-operator_impl", "xla"], None, ("Cheb",)),
         "galerkin": (GALERKIN, "galerkin", ("K4", "K2")),
     }
     out = {}
@@ -1279,7 +1409,9 @@ def phase_options_runs():
         history = ("jax_cpu_history_65x33x33"
                    + (f"_{hist}" if hist else "") + ".npz")
         out[name] = phase_path_run(f"19 {name}", args, history, names,
-                                   iters_within=1, max_itr=OPTION_ITERS)
+                                   iters_within=1, max_itr=OPTION_ITERS,
+                                   only=name in ("float64", "float64 fused",
+                                                 "xla"))
     # K4's runs per level in a steady fused iteration: every level under
     # FGMRES on the nodal path, the fine level only under galerkin_octant
     levels = {"K4": ((65, 33, 33), (33, 17, 17), (17, 9, 9), (9, 5, 5))}

@@ -6,6 +6,7 @@ K3 at the PDE filter's levels 257^3, 129^3 and 65^3, and K2 at 257^3 and
 checkout, in turns on one GPU.
 
     python3 tools/torch_kernel_levels.py [--parent DIR] [--reps 15]
+                                         [--cheb-only]
 
 --parent DIR: the root of another checkout (for instance the parent
 commit, `git archive` unpacked under build/); its csrc/ is built into its
@@ -23,6 +24,16 @@ inputs, rounded to bf16: both round once, so a rounding may fall the
 other way), and the trees' outputs compared bit for bit.  Prints the
 card's name and power limit, the kernels' `ptxas` lines, then one JSON
 line per kernel and size.
+
+The Chebyshev step kernel (csrc/chebyshev.cu) is timed at each level of
+the 257^3 hierarchy in its four forms, beside its plain torch twin (the
+torch operations of the same step in solvers/chebyshev.py::
+chebyshev_smooth_plain, with its 0-d coefficient operations): a start
+from zero (3 field passes: b, dinv read, d written), a start from x (7),
+a recurrence step (8: r, A d, d, dinv, x read, r, d, x written) and the
+last step of a smoothing (6: x written alone).  Its bound is those
+passes at 3.35 TB/s; each form's output is first held to the twin's bit
+for bit.  --cheb-only times it alone.
 """
 
 import argparse
@@ -114,10 +125,93 @@ def _time_bf16(nn, lib, parent, dev, reps):
           BF16_RTOL)
 
 
+# the forms of the Chebyshev step: (field passes of the kernel, the
+# outputs r, d, x it stores)
+CHEB_FORMS = {"from_zero": (3, "d"), "from_x": (7, "rdx"), "step": (8, "rdx"),
+              "last": (6, "x")}
+
+
+def _time_cheb(nn, dev, reps):
+    """The Chebyshev step kernel's four forms on (3, *nn) f32 fields, the
+    recurrence at its step 2, beside the plain torch operations of the
+    same step."""
+    from topopt_in_petsc_tpu_torch.ops.chebyshev import (
+        chebyshev_band,
+        chebyshev_step,
+    )
+    from topopt_in_petsc_tpu_torch.ops.roofline import (
+        H100_BYTES_PER_S,
+        graph_ms,
+    )
+
+    rng = np.random.default_rng(sum(nn) + 3)
+
+    def field(lo=-1.0, hi=1.0):
+        return torch.as_tensor(rng.uniform(lo, hi, size=(3, *nn)),
+                               dtype=torch.float32, device=dev)
+
+    b, ad, dinv, x0, r, d, x = (field() for _ in range(7))
+    dinv = dinv.abs() + 0.5
+    lmax = torch.tensor(1.9, dtype=torch.float32, device=dev)
+    band = dict(lmax=lmax, lower=0.06, upper=1.1)
+    out = {"r": torch.empty_like(b), "d": torch.empty_like(b),
+           "x": torch.empty_like(b)}
+    r2, d2, x2 = out.values()
+
+    # the band, and rho after step 1, formed once per smoothing
+    theta, delta, sigma = chebyshev_band(lmax, 0.06, 1.1, torch.float32)
+    rho = 1.0 / (2.0 * sigma - 1.0 / sigma)
+
+    def plain(form):
+        """{r, d, x} of the plain smoother's operations for `form`, the
+        recurrence at its step 2 (chebyshev_smooth_plain's own lines)."""
+        if form == "from_zero":
+            return {"d": (dinv * b) / theta}
+        if form == "from_x":
+            rr = b - ad
+            dd = (dinv * rr) / theta
+            return {"r": rr, "d": dd, "x": x0 + dd}
+        rr = r - ad
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        dd = (rho_new * rho) * d + (2.0 * rho_new / delta) * (dinv * rr)
+        return {"r": rr, "d": dd, "x": x + dd}
+
+    kernels = {  # in place from the step on, as the smoother runs them
+        "from_zero": lambda: chebyshev_step(0, b, None, None, dinv, None,
+                                            d_out=d2, **band),
+        "from_x": lambda: chebyshev_step(0, b, ad, None, dinv, x0, r_out=r2,
+                                         d_out=d2, x_out=x2, **band),
+        "step": lambda: chebyshev_step(2, r2, ad, d2, dinv, x2, r_out=r2,
+                                       d_out=d2, x_out=x2, **band),
+        "last": lambda: chebyshev_step(2, r2, ad, d2, dinv, x2, x_out=x2,
+                                       **band),
+    }
+    nbytes = 4.0 * b.numel()
+    for form, (passes, stored) in CHEB_FORMS.items():
+        for t, src in ((r2, r), (d2, d), (x2, x)):
+            t.copy_(src)
+        kernels[form]()
+        ref = plain(form)
+        same = all(torch.equal(out[k], ref[k]) for k in stored)
+        del ref
+        n = max(1, min(200, int(5e8 // (passes * nbytes))))
+        ms = dict(zip(("kernel", "plain"), graph_ms(
+            [kernels[form], lambda: plain(form)], n, reps)))
+        bound = passes * nbytes / H100_BYTES_PER_S * 1e3
+        print(json.dumps({"kernel": "chebyshev_step", "form": form,
+                          "nn": nn, "field_passes": passes,
+                          "launches_per_graph": n, "ms": ms,
+                          "bound_ms": bound, "bound_by": "bytes",
+                          "share_of_bound": {
+                              key: bound / v for key, v in ms.items()},
+                          "bitwise_equal_plain": same}), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--cheb-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_levels: no CUDA device", file=sys.stderr)
@@ -154,6 +248,11 @@ def main(argv=None):
                      "nodal_hex_f32", "helmholtz_f32")).get()
     dev = torch.device("cuda", 0)
 
+    for nn in LEVELS[:5]:
+        _time_cheb(nn, dev, args.reps)
+        torch.cuda.empty_cache()
+    if args.cheb_only:
+        return 0
     for nn in BF16_LEVELS:
         _time_bf16(nn, lib, parent, dev, args.reps)
         torch.cuda.empty_cache()

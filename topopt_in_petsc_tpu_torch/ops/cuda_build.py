@@ -23,7 +23,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("hex_operator.cu", "quadform.cu", "nodal_hex.cu")
+SOURCES = ("hex_operator.cu", "quadform.cu", "nodal_hex.cu", "chebyshev.cu")
 BUILD_DIR = _PKG.parent / "build" / "topopt_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_L = ctypes.c_longlong
 # C signature of every entry point: (argtypes), all returning cudaError_t
 _SIGNATURES = {
     "hex_operator_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "nodal_hex_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "helmholtz_grid": (_I, _I, _I, _P),
     "nodal_hex_grid": (_I, _I, _I, _P),
+    "chebyshev_step_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D,
+                           _I, _L, _P),
 }
 
 
